@@ -1,0 +1,495 @@
+"""ASR pipeline: VAD segmentation + truly batched Whisper decode.
+
+Counterpart of ``whisperx_tpu/asr.py`` (batched mode):
+
+  1. the waveform is uploaded once; the VAD reads the resident tensor;
+  2. merged VAD chunks are cut and turned into log-mels on the device;
+  3. chunks are packed into fixed-size, zero-padded batches, one decode each
+     (encoder with the K1 attention kernel, cross-KV, prefill, step loop);
+  4. temperature fallback re-batches only the chunks that fail the
+     compression-ratio / log-prob gates;
+  5. each chunk's tokens are split into timestamped segments.
+
+Options this slice does not run raise ``NotImplementedError`` naming the
+ROADMAP.md item that brings them; none is silently ignored.
+"""
+
+from __future__ import annotations
+
+import time
+import warnings
+from dataclasses import dataclass, field
+from typing import List, Optional, Union
+
+import numpy as np
+import torch
+
+from whisperx_tpu_torch.audio import (
+    N_FRAMES,
+    N_SAMPLES,
+    SAMPLE_RATE,
+    load_audio,
+    log_mel_spectrogram,
+    pad_or_trim,
+)
+from whisperx_tpu_torch.audio.device_chunk import DeviceAudio, chunk_mels, upload_audio
+from whisperx_tpu_torch.decoding import DecodingOptions, get_tokenizer
+from whisperx_tpu_torch.decoding.decode import decode_dispatch, decode_finalize
+from whisperx_tpu_torch.decoding.decode import detect_language as _detect_language
+from whisperx_tpu_torch.decoding.transcribe import split_timestamp_segments
+from whisperx_tpu_torch.types import TranscriptionResult
+from whisperx_tpu_torch.utils.languages import normalize_language
+from whisperx_tpu_torch.utils.metrics import GLOBAL_TRACKER as _tracker
+from whisperx_tpu_torch.vad import load_vad_model, merge_chunks
+
+DEFAULT_ASR_OPTIONS = {
+    "beam_size": None,
+    "best_of": None,
+    "patience": None,
+    "length_penalty": None,
+    "temperatures": (0.0, 0.2, 0.4, 0.6, 0.8, 1.0),
+    "compression_ratio_threshold": 2.4,
+    "log_prob_threshold": -1.0,
+    "no_speech_threshold": 0.6,
+    "condition_on_previous_text": False,
+    "initial_prompt": None,
+    "suppress_tokens": "-1",
+    "suppress_blank": True,
+    # timestamps ON by default: each 30 s chunk splits into timestamped
+    # sub-segments
+    "without_timestamps": False,
+    "max_initial_timestamp": 1.0,
+    "word_timestamps": False,
+    "hallucination_silence_threshold": None,
+    "sample_len": None,  # max tokens per chunk (None = n_text_ctx // 2)
+    "suppress_numerals": False,
+    # int8 cross-KV cache (per-channel scales folded into q and the output)
+    "kv_quant": True,
+    "draft_model": None,
+    "spec_gamma": 4,
+}
+
+DEFAULT_VAD_OPTIONS = {
+    "chunk_size": 30,
+    "vad_onset": 0.500,
+    "vad_offset": 0.363,
+}
+
+# option → (value that is supported, what brings the others)
+_LATER = {
+    "beam_size": (None, "beam search: ROADMAP.md, Queue 1, item 8"),
+    "draft_model": (None, "speculative decoding: ROADMAP.md, Queue 1, item 8"),
+    "word_timestamps": (False, "word timing: ROADMAP.md, Queue 1, item 9"),
+}
+
+
+_SEQUENTIAL = "the sequential seek loop (ROADMAP.md, Queue 1, item 8)"
+
+
+def _check_supported(options: dict) -> None:
+    for key, (ok, later) in _LATER.items():
+        if options.get(key, ok) != ok:
+            raise NotImplementedError(f"{key}={options[key]!r} is not ported yet ({later})")
+
+
+def warmup_audio(duration_s: float = 65.0) -> np.ndarray:
+    """Synthetic speech-like signal: a speech-band carrier with syllable-rate
+    (3 Hz) amplitude modulation, loud enough to trip the VAD."""
+    t = np.arange(int(duration_s * SAMPLE_RATE), dtype=np.float32) / np.float32(
+        SAMPLE_RATE
+    )
+    carrier = 0.3 * np.sin(2 * np.pi * 220.0 * t) + 0.2 * np.sin(
+        2 * np.pi * 440.0 * t
+    )
+    return (carrier * (0.55 + 0.45 * np.sin(2 * np.pi * 3.0 * t))).astype(
+        np.float32
+    )
+
+
+def _max_decode_rows(model, *, kv_quant: bool, sample_len: Optional[int]) -> int:
+    """Max concurrent decode rows (batch × best_of tiles) whose cross-KV +
+    self-KV fit an 8 GiB cache budget (as the JAX package's)."""
+    dims = model.dims
+    if sample_len is None:
+        sample_len = dims.n_text_ctx // 2
+    cache_len = min(dims.n_text_ctx, -(-(8 + sample_len + 1) // 64) * 64)
+    cross_bytes = 1 if kv_quant else 2
+    per_row = 2 * dims.n_text_layer * dims.n_text_state * (
+        1500 * cross_bytes + cache_len * 2
+    )
+    return max(1, int(8 * 2**30 // per_row))
+
+
+def _sync(device: torch.device) -> None:
+    """Barrier so a stage's device work is charged to that stage."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+@dataclass
+class TranscriptionPipeline:
+    """VAD → batched ASR pipeline (role of reference MLXWhisperPipeline)."""
+
+    model: object
+    vad_model: object
+    asr_options: dict = field(default_factory=dict)
+    language: Optional[str] = None
+    task: str = "transcribe"
+    batch_size: int = 8
+    decode_mode: str = "batched"  # "sequential" is not ported yet
+    seed: int = 0  # seeds the sampling generator of each decode at T > 0
+
+    def __post_init__(self):
+        if self.vad_model is None:
+            raise NotImplementedError(f"transcription without VAD is {_SEQUENTIAL}")
+        if self.decode_mode != "batched":
+            raise NotImplementedError(f"decode_mode={self.decode_mode!r} is {_SEQUENTIAL}")
+        self.asr_options = {**DEFAULT_ASR_OPTIONS, **(self.asr_options or {})}
+        _check_supported(self.asr_options)
+
+    @property
+    def device(self) -> torch.device:
+        return self.model.device
+
+    def _tokenizer(self, **kw):
+        return get_tokenizer(
+            self.model.is_multilingual,
+            num_languages=self.model.num_languages,
+            vocab_path=self.model.vocab_path,
+            **kw,
+        )
+
+    def detect_language(self, audio: np.ndarray) -> str:
+        head = np.asarray(pad_or_trim(audio, N_SAMPLES), np.float32)
+        mel = log_mel_spectrogram(head, self.model.dims.n_mels, device=self.device)
+        codes, _ = _detect_language(self.model, mel.T[None], self._tokenizer())
+        return codes[0]
+
+    def warmup(
+        self, batch_size: Optional[int] = None, duration_s: float = 65.0
+    ) -> TranscriptionResult:
+        """Drive the whole path once on synthetic speech (builds the CUDA
+        kernels and warms the allocator before real traffic)."""
+        return self.transcribe(warmup_audio(duration_s), batch_size=batch_size)
+
+    def transcribe(
+        self,
+        audio: Union[str, np.ndarray],
+        batch_size: Optional[int] = None,
+        chunk_size: float = 30,
+        language: Optional[str] = None,
+        task: Optional[str] = None,
+        print_progress: bool = False,
+        verbose: bool = False,
+        initial_prompt: Optional[str] = None,
+        **kwargs,
+    ) -> TranscriptionResult:
+        # per-call ASR option overrides: keys must exist in
+        # DEFAULT_ASR_OPTIONS; applied to a copy for this call only
+        if kwargs:
+            unknown = set(kwargs) - set(DEFAULT_ASR_OPTIONS)
+            if unknown:
+                raise TypeError(
+                    f"Unknown transcribe option(s): {sorted(unknown)}. "
+                    "Valid keys are those of DEFAULT_ASR_OPTIONS."
+                )
+            options = {**self.asr_options, **kwargs}
+            _check_supported(options)
+        else:
+            options = self.asr_options
+        if isinstance(audio, str):
+            audio = load_audio(audio)
+        audio = np.asarray(audio, np.float32)
+        batch_size = batch_size or self.batch_size
+        language = normalize_language(language or self.language)
+        task = task or self.task
+
+        with _tracker.track("upload", len(audio) / SAMPLE_RATE):
+            audio_dev = upload_audio(audio, self.device)
+            _sync(self.device)
+        with _tracker.track("vad", len(audio) / SAMPLE_RATE):
+            chunks = self._segment_with_vad(audio_dev, chunk_size)
+        if not chunks:
+            return {"segments": [], "language": language or "en"}
+
+        if language is None:
+            if self.model.is_multilingual:
+                s0 = int(chunks[0]["start"] * SAMPLE_RATE)
+                e0 = int(chunks[0]["end"] * SAMPLE_RATE)
+                language = self.detect_language(audio[s0:e0])
+                if print_progress or verbose:
+                    print(f"Detected language: {language}")
+            else:
+                language = "en"
+
+        segments = self._transcribe_chunks(
+            audio_dev,
+            chunks,
+            options,
+            batch_size=batch_size,
+            language=language,
+            task=task,
+            print_progress=print_progress,
+            verbose=verbose,
+            initial_prompt=initial_prompt,
+        )
+        return {"segments": segments, "language": language}
+
+    def _segment_with_vad(self, audio: DeviceAudio, chunk_size: float) -> List[dict]:
+        """Device audio goes straight to device-capable VADs (only the prob
+        vector comes back); others get the host array."""
+        if getattr(self.vad_model, "supports_device_audio", False):
+            payload = {
+                "waveform": audio.data,
+                "sample_rate": SAMPLE_RATE,
+                "length": audio.length,
+            }
+        else:
+            payload = {
+                "waveform": audio.data[: audio.length].cpu().numpy(),
+                "sample_rate": SAMPLE_RATE,
+            }
+        vad_segments = self.vad_model(payload, max_speech_duration_s=chunk_size)
+        if not vad_segments:
+            return []
+        onset = getattr(self.vad_model, "vad_onset", 0.5)
+        offset = getattr(self.vad_model, "vad_offset", 0.363)
+        return merge_chunks(vad_segments, chunk_size, onset=onset, offset=offset)
+
+    def _transcribe_chunks(
+        self,
+        audio_dev: DeviceAudio,
+        chunks: List[dict],
+        o: dict,
+        *,
+        batch_size: int,
+        language: str,
+        task: str,
+        print_progress: bool = False,
+        verbose: bool = False,
+        initial_prompt: Optional[str] = None,
+    ) -> List[dict]:
+        if initial_prompt is None:
+            initial_prompt = o["initial_prompt"]
+        n_mels = self.model.dims.n_mels
+
+        # one mel per chunk, cut on the device from the resident waveform
+        # and zero-padded to 30 s BEFORE the mel (silence has a mel floor)
+        with _tracker.track("mel", sum(c["end"] - c["start"] for c in chunks)):
+            mels = chunk_mels(audio_dev, chunks, n_mels)
+            _sync(self.device)
+
+        temperatures = (
+            [o["temperatures"]]
+            if isinstance(o["temperatures"], (int, float))
+            else list(o["temperatures"])
+        )
+        results: List[Optional[object]] = [None] * len(chunks)
+        pending = list(range(len(chunks)))
+
+        for t_idx, temperature in enumerate(temperatures):
+            if not pending:
+                break
+            opts = DecodingOptions(
+                task=task,
+                language=language,
+                temperature=temperature,
+                sample_len=o["sample_len"],
+                best_of=o["best_of"] if temperature > 0 else None,
+                length_penalty=o["length_penalty"],
+                prompt=(
+                    self.model_prompt(initial_prompt) if initial_prompt else None
+                ),
+                suppress_tokens=o["suppress_tokens"],
+                suppress_blank=o["suppress_blank"],
+                suppress_numerals=o.get("suppress_numerals", False),
+                kv_quant=o.get("kv_quant", True),
+                without_timestamps=o["without_timestamps"],
+                max_initial_timestamp=o["max_initial_timestamp"],
+            )
+            # best_of multiplies live decode rows: cap the tiled row count
+            # so the KV caches fit the cache budget
+            tile = int(opts.best_of) if opts.best_of and opts.best_of > 1 else 1
+            if tile > 1:
+                max_rows = _max_decode_rows(
+                    self.model, kv_quant=opts.kv_quant, sample_len=o["sample_len"]
+                )
+                bs_eff = max(1, min(batch_size, max_rows // tile))
+            else:
+                bs_eff = batch_size
+            still_pending = []
+            for base in range(0, len(pending), bs_eff):
+                idxs = pending[base : base + bs_eff]
+                rows = mels[torch.as_tensor(idxs, device=mels.device)]
+                if len(idxs) < bs_eff:  # fixed-size batches, zero rows padded
+                    rows = torch.cat(
+                        [rows, rows.new_zeros((bs_eff - len(idxs), N_FRAMES, n_mels))]
+                    )
+                _tracker.add("batch_slots", bs_eff)
+                _tracker.add("batch_used", len(idxs))
+                generator = None
+                if temperature > 0:
+                    generator = torch.Generator(device=self.device).manual_seed(
+                        self.seed
+                    )
+                audio_s = sum(chunks[i]["end"] - chunks[i]["start"] for i in idxs)
+                with _tracker.track("decode", audio_s):
+                    handle = decode_dispatch(
+                        self.model, rows, opts, generator=generator
+                    )
+                    batch_results = decode_finalize(handle)
+                _tracker.add("decode_steps", handle["steps"])
+                for j, idx in enumerate(idxs):
+                    r = batch_results[j]
+                    _tracker.add("tokens_decoded", len(r.tokens))
+                    if t_idx < len(temperatures) - 1 and self._needs_fallback(r, o):
+                        still_pending.append(idx)
+                    else:
+                        results[idx] = r
+                if print_progress:
+                    done = len(chunks) - len(pending) + base + len(idxs)
+                    print(f"Progress: {min(100, 100 * done // len(chunks))}%...")
+            pending = still_pending
+
+        _t_tok = time.perf_counter()
+        tokenizer = self._tokenizer(language=language, task=task)
+        _tracker.observe("tokenizer", time.perf_counter() - _t_tok)
+        with_timestamps = not o["without_timestamps"]
+
+        segments = []
+        _t_assemble = time.perf_counter()
+        for ch, r in zip(chunks, results):
+            if r is None:
+                continue
+            if (
+                o["no_speech_threshold"] is not None
+                and r.no_speech_prob > o["no_speech_threshold"]
+                and (
+                    o["log_prob_threshold"] is None
+                    or r.avg_logprob < o["log_prob_threshold"]
+                )
+            ):
+                continue  # silent chunk
+            if with_timestamps and r.tokens:
+                # split the window's tokens into timestamped sub-segments
+                subs, _, _ = split_timestamp_segments(
+                    np.asarray(r.tokens, np.int64),
+                    timestamp_begin=tokenizer.timestamp_begin,
+                    segment_size=N_FRAMES,
+                )
+                win = ch["end"] - ch["start"]
+                for s_rel, e_rel, toks in subs:
+                    # clamp to the window's REAL audio extent: timestamps in
+                    # the zero-padded tail of a short chunk are silence
+                    if s_rel >= win:
+                        continue
+                    e_rel = min(e_rel, win)
+                    if e_rel <= s_rel:
+                        continue
+                    text = tokenizer.decode(toks).strip()
+                    if text:
+                        segments.append(
+                            {
+                                "start": round(ch["start"] + s_rel, 3),
+                                "end": round(ch["start"] + e_rel, 3),
+                                "text": text,
+                            }
+                        )
+            else:
+                text = r.text.strip()
+                if text:
+                    segments.append(
+                        {
+                            "start": round(ch["start"], 3),
+                            "end": round(ch["end"], 3),
+                            "text": text,
+                        }
+                    )
+        _tracker.observe("assemble", time.perf_counter() - _t_assemble)
+        if o.get("hallucination_silence_threshold") is not None:
+            warnings.warn(
+                "hallucination_silence_threshold requires "
+                "word_timestamps=True; ignoring it."
+            )
+        if verbose:
+            for seg in segments:
+                print(f"[{seg['start']:.2f} --> {seg['end']:.2f}] {seg['text']}")
+        return segments
+
+    @staticmethod
+    def _needs_fallback(r, o: dict) -> bool:
+        crt = o["compression_ratio_threshold"]
+        lpt = o["log_prob_threshold"]
+        nst = o["no_speech_threshold"]
+        if nst is not None and r.no_speech_prob > nst:
+            return False  # silence: no point retrying hotter
+        if crt is not None and np.isfinite(r.compression_ratio) and r.compression_ratio > crt:
+            return True
+        if lpt is not None and r.avg_logprob < lpt:
+            return True
+        return False
+
+    def model_prompt(self, initial_prompt):
+        """Prompt text → token ids; pre-tokenized sequences pass through."""
+        if isinstance(initial_prompt, (list, tuple)):
+            return list(initial_prompt)
+        return self._tokenizer().encode(" " + initial_prompt.strip())
+
+
+def load_model(
+    whisper_arch: str,
+    device: str = "cuda",
+    compute_type: str = "bfloat16",
+    asr_options: Optional[dict] = None,
+    language: Optional[str] = None,
+    vad_method: Optional[str] = "silero",
+    vad_options: Optional[dict] = None,
+    task: str = "transcribe",
+    backend: str = "auto",
+    batch_size: int = 8,
+    seed: int = 0,
+) -> TranscriptionPipeline:
+    """Load a Whisper pipeline (API parity: reference asr.py:150-275).
+
+    ``whisper_arch``: a converted checkpoint directory or a known
+    architecture name (random weights from ``seed``). ``device``: "cuda"
+    (default; raises without a GPU) or "cpu". ``compute_type``: bfloat16
+    (default), float16 (run as bfloat16, as in the JAX package) or float32.
+    """
+    from whisperx_tpu_torch.models.whisper import load_model as load_whisper
+
+    dtype_map = {
+        "bfloat16": torch.bfloat16,
+        "float16": torch.bfloat16,
+        "float32": torch.float32,
+    }
+    if compute_type in ("int8", "int4"):
+        raise NotImplementedError(
+            f"compute_type={compute_type!r} is the weight-quantized path "
+            "(ROADMAP.md, Queue 1, item 7)"
+        )
+    if compute_type not in dtype_map:
+        raise ValueError(f"unknown compute_type {compute_type!r}")
+    if backend in ("sequential", "standard"):
+        raise NotImplementedError(f"backend={backend!r} is {_SEQUENTIAL}")
+    if not vad_method or vad_method == "none":
+        raise NotImplementedError(f"transcription without VAD is {_SEQUENTIAL}")
+    opts = {**DEFAULT_VAD_OPTIONS, **(vad_options or {})}
+    vad_model = load_vad_model(
+        vad_method,
+        vad_onset=opts["vad_onset"],
+        vad_offset=opts["vad_offset"],
+        chunk_size=opts["chunk_size"],
+    )
+    model = load_whisper(
+        whisper_arch, dtype=dtype_map[compute_type], device=device, seed=seed
+    )
+    return TranscriptionPipeline(
+        model=model,
+        vad_model=vad_model,
+        asr_options=asr_options,
+        language=normalize_language(language),
+        task=task,
+        batch_size=batch_size,
+        seed=seed,
+    )

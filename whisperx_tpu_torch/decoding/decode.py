@@ -1,0 +1,480 @@
+"""Batched autoregressive decoding for Whisper.
+
+Counterpart of ``whisperx_tpu/decoding/decode.py`` (greedy and temperature
+sampling; beam search and speculative decoding come later). One decode is
+encoder → cross-KV (int8 when ``kv_quant``) → prefill → a step loop with the
+logit filters in f32, over static shapes: a token buffer [B, sample_len], a
+self-attention cache sized to the decode budget, and finished rows that keep
+"decoding" EOT instead of being gathered out.
+
+The JAX package runs the loop as one ``lax.while_loop`` on the device. Here
+it is a Python loop that reads ``finished.all()`` back once per step — one
+host sync per token. Capturing the step in a CUDA graph is a later change.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from whisperx_tpu_torch.decoding import filters as F
+from whisperx_tpu_torch.models.whisper.model import (
+    KVCache,
+    decoder_forward,
+    encoder_forward,
+    precompute_cross_kv,
+    quantize_kv,
+)
+from whisperx_tpu_torch.utils.text import compression_ratio
+
+
+@dataclass(frozen=True)
+class DecodingOptions:
+    """Parity with mlx_whisper / OpenAI Whisper DecodingOptions."""
+
+    task: str = "transcribe"
+    language: Optional[str] = None
+    temperature: float = 0.0
+    sample_len: Optional[int] = None
+    best_of: Optional[int] = None
+    beam_size: Optional[int] = None
+    patience: Optional[float] = None
+    length_penalty: Optional[float] = None
+    prompt: Optional[Union[str, Sequence[int]]] = None
+    prefix: Optional[Union[str, Sequence[int]]] = None
+    suppress_tokens: Optional[Union[str, Sequence[int]]] = "-1"
+    suppress_blank: bool = True
+    suppress_numerals: bool = False
+    kv_quant: bool = False  # int8 cross-KV cache
+    without_timestamps: bool = False
+    max_initial_timestamp: Optional[float] = 1.0
+    fp16: bool = True
+
+
+@dataclass
+class DecodingResult:
+    audio_features: Optional[torch.Tensor]
+    language: str
+    language_probs: Optional[dict] = None
+    tokens: List[int] = dataclasses.field(default_factory=list)
+    text: str = ""
+    avg_logprob: float = np.nan
+    no_speech_prob: float = np.nan
+    temperature: float = np.nan
+    compression_ratio: float = np.nan
+
+
+@dataclass(frozen=True)
+class _StaticConfig:
+    """The decode configuration resolved from options + tokenizer."""
+
+    n_head: int
+    n_head_audio: int
+    n_text_ctx: int
+    eot: int
+    sot_index: int
+    no_speech_token: int
+    timestamp_begin: int
+    no_timestamps: int
+    sample_len: int
+    max_initial_timestamp_index: Optional[int]
+    suppress_blank: bool
+    blank_tokens: Tuple[int, ...]
+    suppress: Tuple[int, ...]
+    without_timestamps: bool
+    greedy: bool
+    kv_quant: bool = False
+
+
+def _apply_filters(logits, state, cfg: _StaticConfig):
+    logits = logits.float()
+    if cfg.suppress_blank:
+        # upstream SuppressBlank masks blank openings AND EOT at the first
+        # sampled step, only when the filter is enabled
+        logits = F.suppress_blank(logits, state, cfg.blank_tokens, cfg.eot)
+    logits = F.suppress_tokens(logits, cfg.suppress)
+    if not cfg.without_timestamps:
+        logits = F.apply_timestamp_rules(
+            logits,
+            state,
+            timestamp_begin=cfg.timestamp_begin,
+            eot=cfg.eot,
+            no_timestamps=cfg.no_timestamps,
+            max_initial_timestamp_index=cfg.max_initial_timestamp_index,
+        )
+    return logits
+
+
+def init_kv_cache_like(model, batch: int, cfg: _StaticConfig, n_init: int = 0):
+    """Self-attention cache sized to the decode budget (prefix + sample_len,
+    rounded up to 64), not the full n_text_ctx — every step reads the whole
+    cache, so unused slots cost memory bandwidth."""
+    dec = model.decoder
+    d = dec.tok_emb.shape[1]
+    h = cfg.n_head
+    budget = n_init + cfg.sample_len + 1
+    cache_len = min(cfg.n_text_ctx, -(-budget // 64) * 64)
+    kw = dict(dtype=dec.tok_emb.dtype, device=dec.tok_emb.device)
+    shape = (batch, cache_len, h, d // h)
+    n_layer = len(dec.blocks)
+    return (
+        [torch.zeros(shape, **kw) for _ in range(n_layer)],
+        [torch.zeros(shape, **kw) for _ in range(n_layer)],
+    )
+
+
+@torch.inference_mode()
+def _decode(
+    model,
+    audio_in: torch.Tensor,
+    initial_tokens: torch.Tensor,
+    temperature: float,
+    cfg: _StaticConfig,
+    generator: Optional[torch.Generator],
+    audio_is_features: bool,
+):
+    """Full batched decode. Returns (tokens [B, sample_len], lengths [B],
+    sum_logprobs [B], no_speech_probs [B], audio_features, steps run)."""
+    b = audio_in.shape[0]
+    n_init = initial_tokens.shape[1]
+    device = audio_in.device
+
+    if audio_is_features:
+        audio_features = audio_in
+    else:
+        audio_features = encoder_forward(model.encoder, audio_in, cfg.n_head_audio)
+    cross_k, cross_v = precompute_cross_kv(model.decoder, audio_features, cfg.n_head)
+    if cfg.kv_quant:
+        cross_k = [quantize_kv(x) for x in cross_k]
+        cross_v = [quantize_kv(x) for x in cross_v]
+    self_k, self_v = init_kv_cache_like(model, b, cfg, n_init=n_init)
+    cache = KVCache(self_k, self_v, cross_k, cross_v)
+
+    logits = decoder_forward(model.decoder, initial_tokens, cache, 0, cfg.n_head)
+    probs_at_sot = torch.softmax(logits[:, cfg.sot_index].float(), dim=-1)
+    no_speech_probs = probs_at_sot[:, cfg.no_speech_token]
+    last_logits = logits[:, -1]
+
+    state = F.init_filter_state(initial_tokens)
+    tokens_buf = torch.full((b, cfg.sample_len), cfg.eot, dtype=torch.int64, device=device)
+    finished = torch.zeros((b,), dtype=torch.bool, device=device)
+    sum_logprobs = torch.zeros((b,), dtype=torch.float32, device=device)
+
+    n_sampled = 0
+    # one host sync per step: the loop stops once every row has emitted EOT
+    while n_sampled < cfg.sample_len and not bool(finished.all()):
+        logits = _apply_filters(last_logits, state, cfg)
+        if cfg.greedy:
+            sampled = torch.argmax(logits, dim=-1)
+        else:
+            # Gumbel-max draw from softmax(logits / T): tokens the filters
+            # set to -inf are never drawn
+            u = torch.rand(logits.shape, generator=generator, device=device)
+            gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
+            sampled = torch.argmax(logits / temperature + gumbel, dim=-1)
+        logprobs = torch.log_softmax(logits, dim=-1)
+        step_lp = torch.gather(logprobs, 1, sampled[:, None])[:, 0]
+        sum_logprobs = sum_logprobs + torch.where(finished, 0.0, step_lp)
+        sampled = torch.where(finished, cfg.eot, sampled)
+        tokens_buf[:, n_sampled] = sampled
+        finished = finished | (sampled == cfg.eot)
+        state = F.update_filter_state(state, sampled, cfg.timestamp_begin)
+        last_logits = decoder_forward(
+            model.decoder, sampled[:, None], cache, n_init + n_sampled, cfg.n_head
+        )[:, -1]
+        n_sampled += 1
+
+    is_eot = tokens_buf == cfg.eot
+    # rows that never emitted EOT ran the full sample_len
+    lengths = torch.where(
+        is_eot.any(dim=-1), is_eot.int().argmax(dim=-1), cfg.sample_len
+    )
+    return tokens_buf, lengths, sum_logprobs, no_speech_probs, audio_features, n_sampled
+
+
+@torch.inference_mode()
+def _detect_language_features(model, audio_features, n_head, sot, lang_tokens):
+    b = audio_features.shape[0]
+    dec = model.decoder
+    cross_k, cross_v = precompute_cross_kv(dec, audio_features, n_head)
+    d = dec.tok_emb.shape[1]
+    kw = dict(dtype=dec.tok_emb.dtype, device=dec.tok_emb.device)
+    # one-token forward: an 8-slot self cache suffices (the mask is positional)
+    shape = (b, 8, n_head, d // n_head)
+    n_layer = len(dec.blocks)
+    cache = KVCache(
+        [torch.zeros(shape, **kw) for _ in range(n_layer)],
+        [torch.zeros(shape, **kw) for _ in range(n_layer)],
+        cross_k,
+        cross_v,
+    )
+    tokens = torch.full((b, 1), sot, dtype=torch.int64, device=audio_features.device)
+    logits = decoder_forward(dec, tokens, cache, 0, n_head)[:, 0].float()
+    mask = torch.full((logits.shape[-1],), float("-inf"), device=logits.device)
+    mask[list(lang_tokens)] = 0.0
+    return torch.softmax(logits + mask, dim=-1)
+
+
+def detect_language(
+    model, mel: Optional[torch.Tensor], tokenizer, *, features=None
+) -> Tuple[list, list]:
+    """Language id per batch row: (codes, prob dicts). ``features``:
+    pre-encoded audio features to reuse (skips the encoder)."""
+    lang_tokens = tuple(tokenizer.all_language_tokens)
+    n_head = model.dims.n_audio_head
+    if features is None:
+        if mel.dim() == 2:
+            mel = mel[None]
+        with torch.inference_mode():
+            features = encoder_forward(model.encoder, mel.to(model.dtype), n_head)
+    probs = _detect_language_features(
+        model, features, n_head, tokenizer.sot, lang_tokens
+    ).cpu().numpy()
+    codes, prob_dicts = [], []
+    for row in probs:
+        best = int(row.argmax())
+        codes.append(tokenizer.language_code_of(best))
+        prob_dicts.append(
+            {tokenizer.language_code_of(t): float(row[t]) for t in lang_tokens}
+        )
+    return codes, prob_dicts
+
+
+def _build_initial_tokens(
+    tokenizer,
+    options: DecodingOptions,
+    n_text_ctx: int = 448,
+    sample_len: Optional[int] = None,
+) -> List[int]:
+    tokens = list(tokenizer.sot_sequence)
+    if options.without_timestamps:
+        tokens = list(tokenizer.sot_sequence_including_notimestamps)
+    if options.prefix is not None:
+        prefix = (
+            tokenizer.encode(" " + options.prefix.strip())
+            if isinstance(options.prefix, str)
+            else list(options.prefix)
+        )
+        # upstream whisper trims the prefix to n_ctx//2 - sample_len; never
+        # keep more than half the context either, so a huge prefix can't
+        # drive the sample budget to zero
+        max_prefix = n_text_ctx // 2 - (sample_len or 0)
+        if max_prefix <= 0:
+            max_prefix = n_text_ctx // 2
+        if len(prefix) > max_prefix:
+            prefix = prefix[-max_prefix:]
+        tokens = tokens + prefix
+    if options.prompt is not None:
+        prompt = (
+            tokenizer.encode(" " + options.prompt.strip())
+            if isinstance(options.prompt, str)
+            else list(options.prompt)
+        )
+        n_ctx_half = n_text_ctx // 2 - 1
+        tokens = [tokenizer.sot_prev] + prompt[-n_ctx_half:] + tokens
+    return tokens
+
+
+def decode(
+    model,
+    mel: torch.Tensor,
+    options: DecodingOptions = DecodingOptions(),
+    *,
+    tokenizer=None,
+    generator: Optional[torch.Generator] = None,
+    keep_audio_features: bool = False,
+) -> Union[DecodingResult, List[DecodingResult]]:
+    """Decode 30 s mel segment(s). ``mel``: [T, n_mels] or [B, T, n_mels]."""
+    return decode_finalize(
+        decode_dispatch(
+            model,
+            mel,
+            options,
+            tokenizer=tokenizer,
+            generator=generator,
+            keep_audio_features=keep_audio_features,
+        )
+    )
+
+
+def decode_dispatch(
+    model,
+    mel: torch.Tensor,
+    options: DecodingOptions = DecodingOptions(),
+    *,
+    tokenizer=None,
+    generator: Optional[torch.Generator] = None,
+    keep_audio_features: bool = False,
+) -> dict:
+    """Run the decode and return a handle of device tensors, not yet read
+    back; ``decode_finalize`` converts them. Sampling at temperature > 0
+    draws from ``generator`` (a ``torch.Generator`` on the model's
+    device), which the caller must pass."""
+    if options.beam_size is not None and options.temperature == 0:
+        raise NotImplementedError(
+            "beam search comes with the decode variants (ROADMAP.md, "
+            "Queue 1, item 8)"
+        )
+    if options.temperature > 0 and generator is None:
+        raise ValueError(
+            "temperature > 0 samples: pass generator=torch.Generator(device)"
+        )
+    single = mel.dim() == 2
+    if single:
+        mel = mel[None]
+    b = mel.shape[0]
+
+    if tokenizer is None:
+        from whisperx_tpu_torch.decoding.tokenizer import get_tokenizer
+
+        tokenizer = get_tokenizer(
+            model.is_multilingual,
+            num_languages=model.dims.num_languages,
+            language=options.language or "en",
+            task=options.task,
+        )
+
+    mel = mel.to(model.dtype)
+    language = options.language
+    language_probs = [None] * b
+    shared_features = None
+    if model.is_multilingual and language is None:
+        # encode ONCE and share the features between detection and decode
+        with torch.inference_mode():
+            shared_features = encoder_forward(
+                model.encoder, mel, model.dims.n_audio_head
+            )
+        codes, probs = detect_language(
+            model, None, tokenizer, features=shared_features
+        )
+        # one language per batch (whisper semantics: the majority)
+        language = max(set(codes), key=codes.count)
+        language_probs = probs
+        # replace() re-runs __post_init__, rebuilding the SOT sequence
+        tokenizer = dataclasses.replace(tokenizer, language=language)
+    language = language or "en"
+
+    n_ctx = model.dims.n_text_ctx
+    sample_len = options.sample_len or n_ctx // 2
+    initial = _build_initial_tokens(
+        tokenizer, options, n_text_ctx=n_ctx, sample_len=options.sample_len
+    )
+    if len(initial) >= n_ctx:
+        raise ValueError(
+            f"prompt+prefix occupy {len(initial)} of {n_ctx} context slots; "
+            "no room left to generate"
+        )
+    max_initial_ts_index = None
+    if options.max_initial_timestamp is not None:
+        max_initial_ts_index = round(options.max_initial_timestamp / 0.02)
+
+    blank = tuple(tokenizer.encode(" "))
+    cfg = _StaticConfig(
+        n_head=model.dims.n_text_head,
+        n_head_audio=model.dims.n_audio_head,
+        n_text_ctx=n_ctx,
+        eot=tokenizer.eot,
+        sot_index=initial.index(tokenizer.sot),
+        no_speech_token=tokenizer.no_speech,
+        timestamp_begin=tokenizer.timestamp_begin,
+        no_timestamps=tokenizer.no_timestamps,
+        sample_len=min(sample_len, n_ctx - len(initial)),
+        max_initial_timestamp_index=max_initial_ts_index,
+        suppress_blank=options.suppress_blank,
+        blank_tokens=blank if options.suppress_blank else (),
+        suppress=F.build_suppress_list(
+            tokenizer,
+            options.suppress_tokens,
+            suppress_numerals=options.suppress_numerals,
+        ),
+        without_timestamps=options.without_timestamps,
+        greedy=options.temperature == 0,
+        kv_quant=options.kv_quant,
+    )
+
+    audio_in = shared_features if shared_features is not None else mel
+    # best_of: at temperature > 0, n independent candidates per row (the
+    # batch tiled), keeping the one with the best length-normalized score
+    n_cand = 1
+    if options.temperature > 0 and options.best_of and int(options.best_of) > 1:
+        n_cand = int(options.best_of)
+        audio_in = audio_in.repeat_interleave(n_cand, dim=0)
+    initial_arr = torch.tensor(
+        [initial] * (b * n_cand), dtype=torch.int64, device=mel.device
+    )
+    tokens_buf, lengths, sum_logprobs, no_speech_probs, audio_features, steps = _decode(
+        model,
+        audio_in,
+        initial_arr,
+        max(options.temperature, 1e-6),
+        cfg,
+        generator,
+        audio_is_features=shared_features is not None,
+    )
+    return {
+        "device": (tokens_buf, lengths, sum_logprobs, no_speech_probs, audio_features),
+        "steps": steps,
+        "b": b,
+        "n_cand": n_cand,
+        "single": single,
+        "tokenizer": tokenizer,
+        "language": language,
+        "language_probs": language_probs,
+        "options": options,
+        "keep_audio_features": keep_audio_features,
+    }
+
+
+def decode_finalize(handle: dict) -> Union[DecodingResult, List[DecodingResult]]:
+    """Read a ``decode_dispatch`` handle back into ``DecodingResult``s."""
+    tokens_buf, lengths, sum_logprobs, no_speech_probs, audio_features = handle[
+        "device"
+    ]
+    b = handle["b"]
+    n_cand = handle["n_cand"]
+    tokenizer = handle["tokenizer"]
+    options = handle["options"]
+    keep_audio_features = handle["keep_audio_features"]
+
+    tokens_np = tokens_buf.cpu().numpy()
+    lengths_np = lengths.cpu().numpy()
+    sum_lp = sum_logprobs.cpu().numpy()
+    nsp = no_speech_probs.cpu().numpy()
+
+    if n_cand > 1:
+        # upstream MaximumLikelihoodRanker: sum_logprob / penalty, with
+        # penalty ((5+len)/6)**length_penalty when set, else len + 1
+        lp = options.length_penalty
+        if lp is not None:
+            penalty = ((5.0 + lengths_np) / 6.0) ** lp
+        else:
+            penalty = lengths_np + 1
+        pick = (sum_lp / penalty).reshape(b, n_cand).argmax(axis=-1)
+        sel = np.arange(b) * n_cand + pick
+        tokens_np, lengths_np = tokens_np[sel], lengths_np[sel]
+        sum_lp, nsp = sum_lp[sel], nsp[sel]
+        if keep_audio_features:
+            audio_features = audio_features[torch.as_tensor(sel)]
+
+    results = []
+    for i in range(b):
+        toks = tokens_np[i, : lengths_np[i]].tolist()
+        text = tokenizer.decode(toks).strip()
+        results.append(
+            DecodingResult(
+                audio_features=audio_features[i] if keep_audio_features else None,
+                language=handle["language"],
+                language_probs=handle["language_probs"][i],
+                tokens=toks,
+                text=text,
+                avg_logprob=float(sum_lp[i] / (lengths_np[i] + 1)),
+                no_speech_prob=float(nsp[i]),
+                temperature=options.temperature,
+                compression_ratio=compression_ratio(text) if text else np.nan,
+            )
+        )
+    return results[0] if handle["single"] else results
