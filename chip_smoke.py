@@ -6,8 +6,8 @@
 Phases, each of which passes or raises (the script then exits non-zero):
 
   1. card: the device name and ``nvidia-smi``'s name and power limit;
-  2. build: every CUDA kernel of the main path, from the sources in this
-     checkout (one nvcc per source, all started together);
+  2. build: the CUDA kernel of the main path, from the source in this
+     checkout;
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the shapes the main path gives it, with stated tolerances; times of the
      kernel, the plain version and one PyTorch library call (the yardstick,
@@ -16,7 +16,10 @@ Phases, each of which passes or raises (the script then exits non-zero):
      width with random weights, ``.transcribe`` of ~120 s of synthetic
      speech; the kernel launch counts are reset just before and read just
      after, and every kernel of the path must have launched;
-  5. small model: f32 ``test-nano`` through the same pipeline on CUDA and on
+  5. decode profile: the main path's model decodes one batch of 8 chunks
+     greedily for 48 steps, timed on the host clock over 5 runs, then once
+     under ``torch.profiler`` (device busy share, kernels by device time);
+  6. small model: f32 ``test-nano`` through the same pipeline on CUDA and on
      the CPU with the same weights; segments and greedy tokens must match.
 
 The second-to-last line is a JSON object with one entry per kernel; the last
@@ -40,6 +43,7 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 
 MAIN_AUDIO_S = 120.0
+PROFILE_BATCH, PROFILE_STEPS, PROFILE_RUNS = 8, 48, 5
 
 
 def synth_speech(duration_s: float, sr: int = 16000, seed: int = 0):
@@ -93,12 +97,11 @@ def phase_build() -> None:
     from whisperx_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    libs = _build.build_all(["flash_attention"])
-    print(f"[build] {len(libs)} kernel source(s) in {time.perf_counter() - t0:.2f} s")
-    for name in libs:
-        for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}")
+    _build.load("flash_attention")
+    print(f"[build] flash_attention.cu in {time.perf_counter() - t0:.2f} s")
+    for line in _build.build_log("flash_attention").splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"[build] flash_attention: {line.strip()}")
 
 
 def attention_case(bh, t, d, dtype, seed=0):
@@ -185,8 +188,9 @@ def phase_kernels() -> dict:
     return main
 
 
-def phase_main_path(k1: dict) -> None:
-    """large-v3 at full width, batch 8, through the user's entry points."""
+def phase_main_path(k1: dict):
+    """large-v3 at full width, batch 8, through the user's entry points;
+    returns the model for the decode profile."""
     import torch
 
     import whisperx_tpu_torch
@@ -240,8 +244,59 @@ def phase_main_path(k1: dict) -> None:
         f"batch fill {counters.get('batch_used', 0):.0f}/{counters.get('batch_slots', 0):.0f}; "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
     )
-    del pipe
-    torch.cuda.empty_cache()
+    return pipe.model
+
+
+def phase_decode_profile(model) -> None:
+    """Where one batched decode spends its time: PROFILE_BATCH 30 s mels of
+    the pipeline's warm-up signal, decoded greedily for PROFILE_STEPS tokens
+    (encoder and prefill included) with the main path's options."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from whisperx_tpu_torch.asr import warmup_audio
+    from whisperx_tpu_torch.audio import log_mel_batch
+    from whisperx_tpu_torch.decoding import DecodingOptions
+    from whisperx_tpu_torch.decoding.decode import decode_dispatch
+
+    audio = np.stack([warmup_audio(30.0)] * PROFILE_BATCH)
+    mels = log_mel_batch(audio, model.dims.n_mels, device="cuda")
+    opts = DecodingOptions(language="en", sample_len=PROFILE_STEPS, kv_quant=True)
+
+    def run():
+        h = decode_dispatch(model, mels, opts)
+        torch.cuda.synchronize()
+        return h["steps"]
+
+    run()  # warm-up: allocator, cuBLAS handles
+    per_step_ms = []
+    for _ in range(PROFILE_RUNS):
+        t0 = time.perf_counter()
+        steps = run()
+        per_step_ms.append((time.perf_counter() - t0) / steps * 1e3)
+    q1, med, q3 = np.percentile(per_step_ms, [25, 50, 75])
+    print(
+        f"[profile] batch {PROFILE_BATCH}, {steps} steps, {PROFILE_RUNS} runs: "
+        f"ms per step (wall, encoder and prefill included) "
+        f"{' '.join(f'{x:.3f}' for x in per_step_ms)}; median {med:.3f}, "
+        f"quartiles {q1:.3f} / {q3:.3f}"
+    )
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    device_s = sum(e.self_device_time_total for e in events) / 1e6
+    print(
+        f"[profile] one decode under the profiler: wall {wall:.4f} s, CUDA "
+        f"kernels {device_s:.4f} s, device busy {device_s / wall:.1%}"
+    )
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
+        print(
+            f"[profile] {e.self_device_time_total / 1e3:10.3f} ms "
+            f"{e.count:7d} calls  {e.key[:90]}"
+        )
 
 
 def phase_small_model() -> None:
@@ -304,7 +359,10 @@ def main() -> int:
     name = phase_card()
     phase_build()
     k1 = phase_kernels()
-    phase_main_path(k1)
+    model = phase_main_path(k1)
+    phase_decode_profile(model)
+    del model
+    torch.cuda.empty_cache()
     phase_small_model()
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [k1]}))

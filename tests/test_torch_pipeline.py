@@ -115,6 +115,31 @@ def test_port_runs_without_jax(nano_ckpt):
     assert out.stdout.strip().endswith("OK")
 
 
+@pytest.mark.parametrize("tf32,bf16_reduced", [(True, True), (False, False)])
+def test_caller_matmul_settings_kept(monkeypatch, tf32, bf16_reduced):
+    """The port sets its reference numerics (no TF32, bf16 reduced in f32)
+    only while its own forward passes run: the process's settings are the
+    same after a transcription as before, and are off inside one."""
+    import whisperx_tpu_torch
+    from whisperx_tpu_torch.models.whisper import model as wmodel
+
+    m = torch.backends.cuda.matmul
+    monkeypatch.setattr(m, "allow_tf32", tf32)
+    monkeypatch.setattr(m, "allow_bf16_reduced_precision_reduction", bf16_reduced)
+    seen = []
+    layer_norm = wmodel.layer_norm
+
+    def spy(*args, **kwargs):
+        seen.append((m.allow_tf32, m.allow_bf16_reduced_precision_reduction))
+        return layer_norm(*args, **kwargs)
+
+    monkeypatch.setattr(wmodel, "layer_norm", spy)
+    pipe = whisperx_tpu_torch.load_model("test-nano", device="cpu", vad_method="energy")
+    pipe.transcribe(synth_speech(8.0), language="en", temperatures=(0.0,), sample_len=4)
+    assert seen and set(seen) == {(False, False)}
+    assert (m.allow_tf32, m.allow_bf16_reduced_precision_reduction) == (tf32, bf16_reduced)
+
+
 def test_cuda_without_a_gpu_raises(monkeypatch):
     import whisperx_tpu_torch
 

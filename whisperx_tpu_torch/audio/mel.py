@@ -7,9 +7,9 @@ filterbank (librosa-compatible, computed from the closed form), log10
 clamped at 1e-10, dynamic-range floor at (max - 8), then (x+4)/4.
 
 The windowed DFT is two dense matrix products over reshape-framed audio
-(no FFT op). Everything is f32; on CUDA the products must not use TF32
-(``whisperx_tpu_torch.models.whisper.resolve_device`` turns it off), which
-matches JAX's ``Precision.HIGHEST``.
+(no FFT op). Everything is f32; on CUDA the products run without TF32
+(``utils/precision.py::reference_matmul`` around the body), which matches
+JAX's ``Precision.HIGHEST``.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from whisperx_tpu_torch.audio.constants import HOP_LENGTH, N_FFT, SAMPLE_RATE
+from whisperx_tpu_torch.utils.precision import reference_matmul
 
 
 def _hz_to_mel(freq: np.ndarray | float) -> np.ndarray:
@@ -128,6 +129,7 @@ def _mel_filters_tensor(n_mels: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(mel_filters(n_mels)).to(device)
 
 
+@reference_matmul()
 def _log_mel_batch_body(audio: torch.Tensor, n_mels: int) -> torch.Tensor:
     """[N, L] f32 → [N, L // HOP_LENGTH, n_mels] log-mels, each row with its
     own dynamic-range floor. Shared by ``log_mel_batch`` and the chunk

@@ -26,23 +26,15 @@ from whisperx_tpu_torch.models.whisper.model import (
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:
     """The torch device for ``device``; asking for CUDA without a usable GPU
-    raises (the port never moves to the CPU unless asked).
-
-    For CUDA this also sets the process's matmul numerics to those of the
-    JAX reference: f32 products in full f32 (no TF32, as
-    ``Precision.HIGHEST``), and bf16 GEMMs reduced in f32 only."""
+    raises (the port never moves to the CPU unless asked)."""
     dev = torch.device(device)
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {str(device)!r}: use 'cuda' or 'cpu'")
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                f"device {str(device)!r} requested but no CUDA GPU is "
-                "available; pass device='cpu' to run on the CPU"
-            )
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} requested but no CUDA GPU is "
+            "available; pass device='cpu' to run on the CPU"
+        )
     return dev
 
 

@@ -10,7 +10,8 @@ it step by step so that f32 runs agree with the JAX package to rounding:
     ``encoder.blocks.0.attn.query.w``;
   - every matrix product accumulates in f32 (JAX's
     ``preferred_element_type=f32``); layer-norm statistics are f32 with the
-    population variance; the logits are f32;
+    population variance; the logits are f32; the forward passes run
+    under ``reference_matmul`` (no TF32, bf16 GEMMs reduced in f32);
   - GELU is the tanh approximation (``jax.nn.gelu``'s default);
   - the encoder's self-attention goes through the K1 kernel
     (``ops/flash_attention.py``); the decoder's attention is plain matrix
@@ -30,6 +31,7 @@ from torch import nn
 
 from whisperx_tpu_torch.models.whisper.config import ModelDimensions
 from whisperx_tpu_torch.ops.flash_attention import flash_attention
+from whisperx_tpu_torch.utils.precision import reference_matmul
 
 # ---------------------------------------------------------------------------
 # Modules: weight containers named after the JAX parameter tree
@@ -306,6 +308,7 @@ def _conv1d(p: Conv1d, x: torch.Tensor, stride: int) -> torch.Tensor:
     return y.to(x.dtype) + p.b
 
 
+@reference_matmul()
 def encoder_forward(
     enc: AudioEncoder, mel: torch.Tensor, n_head: int
 ) -> torch.Tensor:
@@ -377,6 +380,7 @@ class KVCache:
     cross_v: List[CrossKV]
 
 
+@reference_matmul()
 def precompute_cross_kv(
     dec: TextDecoder, audio_features: torch.Tensor, n_head: int
 ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
@@ -406,6 +410,7 @@ def _cross_attention(
     return (cattn * cv.scale).to(cq.dtype)
 
 
+@reference_matmul()
 def decoder_forward(
     dec: TextDecoder,
     tokens: torch.Tensor,  # [B, T_new] int64

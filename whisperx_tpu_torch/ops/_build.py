@@ -5,8 +5,7 @@ into a shared library under ``_build/`` (listed in ``.gitignore``), loaded
 with ``ctypes``. The library's file name carries a hash of the source and
 the compiler flags, so an edited source is rebuilt and an unchanged one is
 built once per checkout. Nothing is built when a module is imported: the
-first launch builds, or a caller builds everything up front with
-``build_all``.
+first ``load`` builds.
 """
 
 from __future__ import annotations
@@ -16,8 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
-from typing import Dict, Iterable
+from typing import Dict
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -29,7 +27,6 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",  # registers, shared memory and spills, into the .log
 )
 
-_lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 
@@ -56,39 +53,6 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 
-def _start(name: str) -> subprocess.Popen:
-    """Start nvcc on ``csrc/<name>.cu``, writing a temporary library."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    out = library_path(name)
-    with open(f"{out}.log", "w") as log:
-        return subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", f"{out}.{os.getpid()}.tmp",
-             os.path.join(CSRC, f"{name}.cu")],
-            stdout=log, stderr=subprocess.STDOUT,
-        )
-
-
-def _finish(name: str, proc: subprocess.Popen) -> None:
-    out = library_path(name)
-    if proc.wait() != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{build_log(name)}")
-    # atomic: a reader never sees half a file
-    os.replace(f"{out}.{os.getpid()}.tmp", out)
-
-
-def build_all(names: Iterable[str]) -> Dict[str, str]:
-    """Compile every named kernel that is not built yet, all nvcc processes
-    at once, and return ``{name: library path}``."""
-    names = list(names)
-    with _lock:
-        procs = {
-            n: _start(n) for n in names if not os.path.exists(library_path(n))
-        }
-        for n, proc in procs.items():
-            _finish(n, proc)
-    return {n: library_path(n) for n in names}
-
-
 def build_log(name: str) -> str:
     """The compiler's output (``-Xptxas -v``) of the last build of ``name``."""
     path = f"{library_path(name)}.log"
@@ -99,10 +63,21 @@ def build_log(name: str) -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed."""
+    """The loaded library of kernel ``name``, compiled first if needed."""
     lib = _loaded.get(name)
     if lib is None:
-        path = build_all([name])[name]
-        with _lock:
-            lib = _loaded.setdefault(name, ctypes.CDLL(path))
+        out = library_path(name)
+        if not os.path.exists(out):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{out}.{os.getpid()}.tmp"
+            with open(f"{out}.log", "w") as log:
+                rc = subprocess.run(
+                    [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+                     os.path.join(CSRC, f"{name}.cu")],
+                    stdout=log, stderr=subprocess.STDOUT,
+                ).returncode
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed for {name}.cu:\n{build_log(name)}")
+            os.replace(tmp, out)  # atomic: a reader never sees half a file
+        lib = _loaded[name] = ctypes.CDLL(out)
     return lib
