@@ -1,0 +1,170 @@
+"""The port's CLI against the JAX package's on the CPU: the same flags,
+choices and defaults (but ``--device`` and ``--version``); byte-identical
+transcripts from the same f32 checkpoint, with the default beam search; the
+int8 path; and every flag of a stage not ported yet raises
+``NotImplementedError`` naming its ROADMAP.md item, before anything loads."""
+
+import dataclasses
+import json
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from conftest import synth_speech
+from whisperx_tpu.__main__ import build_parser as jax_build_parser
+from whisperx_tpu.convert.checkpoint import save_checkpoint
+from whisperx_tpu.models.whisper.config import MODEL_DIMS
+from whisperx_tpu.models.whisper.model import init_params
+from whisperx_tpu_torch.__main__ import build_parser
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
+
+DIMS = MODEL_DIMS["test-nano"]
+JAX_ACTIONS = {a.dest: a for a in jax_build_parser()._actions}
+OWN_DEFAULTS = {"device": ("tpu", "cuda")}  # (JAX's, the port's)
+OUTPUTS = ("json", "srt", "tsv", "txt", "vtt")
+
+
+@pytest.mark.parametrize("dest", sorted(JAX_ACTIONS))
+def test_parser_flag_matches_jax(dest):
+    want = JAX_ACTIONS[dest]
+    got = {a.dest: a for a in build_parser()._actions}[dest]
+    assert got.option_strings == want.option_strings
+    assert type(got) is type(want)
+    assert (got.nargs, got.choices, got.required) == (want.nargs, want.choices, want.required)
+    assert getattr(got.type, "__name__", got.type) == getattr(want.type, "__name__", want.type)
+    if dest in OWN_DEFAULTS:
+        assert (want.default, got.default) == OWN_DEFAULTS[dest]
+    else:
+        assert got.default == want.default
+
+
+def test_parser_has_no_flag_of_its_own():
+    assert {a.dest for a in build_parser()._actions} == set(JAX_ACTIONS)
+
+
+def test_version_names_the_port(capsys):
+    with pytest.raises(SystemExit):
+        build_parser().parse_args(["--version"])
+    assert capsys.readouterr().out.startswith("whisperx-tpu-torch ")
+
+
+@pytest.fixture(scope="module")
+def workdir(tmp_path_factory):
+    """A test-nano f32 checkpoint written by the JAX package, and ~8 s of
+    synthetic speech as a 16-bit WAV."""
+    from whisperx_tpu_torch.audio import save_wav
+
+    root = tmp_path_factory.mktemp("cli")
+    params = init_params(DIMS, jax.random.PRNGKey(0), dtype=jnp.float32)
+    save_checkpoint(
+        str(root / "nano"), params,
+        {"name": "test-nano", "family": "whisper", "dims": dataclasses.asdict(DIMS)},
+    )
+    silence = np.zeros(8000, np.float32)
+    save_wav(str(root / "clip.wav"), np.concatenate([silence, synth_speech(7.0), silence]))
+    return root
+
+
+def _run(package, argv):
+    """Run one package's CLI in-process, as its ``cli()`` does."""
+    if package == "jax":
+        from whisperx_tpu.transcribe import transcribe_task
+
+        parser = jax_build_parser()
+    else:
+        from whisperx_tpu_torch.transcribe import transcribe_task
+
+        parser = build_parser()
+    return transcribe_task(parser.parse_args(argv).__dict__, parser)
+
+
+def _outputs(out_dir):
+    return {f: open(os.path.join(out_dir, f"clip.{f}"), "rb").read() for f in OUTPUTS}
+
+
+def _argv(workdir, out, compute_type, *extra):
+    return [
+        str(workdir / "clip.wav"), "--model", str(workdir / "nano"), "--device", "cpu",
+        "--compute_type", compute_type, "--vad_method", "energy", "--language", "en",
+        "--no_align", "-f", "all", "--temperature_increment_on_fallback", "None",
+        "--batch_size", "1", "-o", str(workdir / out), *extra,
+    ]
+
+
+def _metrics_shape(path):
+    """The ``--log_json`` lines without their timings: each line's keys,
+    its event and its stage. The JAX package's "dispatch" stage (the host
+    queueing its asynchronous decodes, which its "decode" stage then waits
+    for) is left out: the port's decode runs in its "decode" stage alone."""
+    lines = [json.loads(line) for line in open(path)]
+    return [
+        (sorted(d), d["event"], d.get("stage"), d.get("files"))
+        for d in lines
+        if d.get("stage") != "dispatch"
+    ]
+
+
+def test_cli_writes_the_same_files_as_jax(workdir):
+    """f32, beam 5 (the CLI default) at one temperature; the ignored flags
+    are accepted. Every written file is byte-identical, and the
+    ``--log_json`` metrics have the same lines, keys and stages."""
+    from whisperx_tpu.utils.metrics import GLOBAL_TRACKER as jax_tracker
+    from whisperx_tpu_torch.utils.metrics import GLOBAL_TRACKER
+
+    extra = ("--fp16", "False", "--threads", "2", "--segment_resolution", "chunk")
+    jax_tracker.reset()
+    _run("jax", _argv(workdir, "jax_f32", "float32", *extra, "--log_json", str(workdir / "jax.jsonl")))
+    GLOBAL_TRACKER.reset()
+    pipe = _run("torch", _argv(workdir, "torch_f32", "float32", *extra, "--log_json", str(workdir / "torch.jsonl")))
+    assert pipe.asr_options["beam_size"] == 5 and pipe.asr_options["temperatures"] == (0.0,)
+    want, got = _outputs(workdir / "jax_f32"), _outputs(workdir / "torch_f32")
+    for f in OUTPUTS:
+        assert got[f] == want[f], f
+    assert b'"language": "en"' in got["json"]
+    metrics = _metrics_shape(workdir / "torch.jsonl")
+    assert metrics == _metrics_shape(workdir / "jax.jsonl")
+    assert metrics[-1][1:] == ("summary", None, 1) and len(metrics) > 1
+
+
+def test_cli_int8_writes_the_same_files_as_jax(workdir):
+    """``--compute_type int8``: bf16 weights, decoder linears quantized to
+    int8 by each package (bit-identical codes and scales); the port runs K4's
+    plain version, JAX its XLA dequant-dot. On this input the two rounding
+    orders choose the same tokens, so the files are identical."""
+    from whisperx_tpu_torch.quant import QuantizedLinear
+
+    _run("jax", _argv(workdir, "jax_int8", "int8"))
+    pipe = _run("torch", _argv(workdir, "torch_int8", "int8"))
+    quantized = [m for m in pipe.model.modules() if isinstance(m, QuantizedLinear)]
+    assert len(quantized) == 20 and all(m.qw.dtype.itemsize == 1 for m in quantized)
+    want, got = _outputs(workdir / "jax_int8"), _outputs(workdir / "torch_int8")
+    for f in OUTPUTS:
+        assert got[f] == want[f], f
+
+
+@pytest.mark.parametrize(
+    "extra",
+    [
+        ("--diarize",),
+        ("--word_timestamps", "True"),
+        ("--hallucination_silence_threshold", "2"),
+        ("--draft_model", "tiny"),
+        ("--backend", "sequential"),
+        ("--vad_method", "none"),
+        ("--vad_method", "pyannote"),
+        ("--vad_method", "hybrid"),
+        ("--data_parallel", "on"),
+        (),  # without --no_align: forced alignment
+    ],
+    ids=lambda e: " ".join(e) or "align",
+)
+def test_not_ported_flags_raise(workdir, extra):
+    argv = _argv(workdir, "refused", "float32")
+    if not extra:
+        argv.remove("--no_align")
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md, Queue 1, item \d+"):
+        _run("torch", argv + list(extra))
+    assert not os.path.exists(workdir / "refused" / "clip.json")

@@ -196,12 +196,17 @@ def test_temperature_sampling_properties(models, mels, tokenizers):
 
 
 def test_sampling_needs_a_generator_and_beam_search_is_later(models, mels):
+    """Sampling without a generator raises. Beam search, once a later item,
+    now runs at temperature 0 (``decoding/beam.py``; its parity with JAX is
+    in ``test_torch_beam.py``)."""
     _, tmodel = models
     mel = torch.from_numpy(mels[:1])
     with pytest.raises(ValueError, match="generator"):
         decode_dispatch(tmodel, mel, DecodingOptions(language="en", temperature=0.5))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        decode_dispatch(tmodel, mel, DecodingOptions(language="en", beam_size=2))
+    handle = decode_dispatch(
+        tmodel, mel, DecodingOptions(language="en", beam_size=2, sample_len=4)
+    )
+    assert "beam_device" in handle and handle["steps"] == 4
 
 
 def test_best_of_keeps_the_best_candidate_per_row(models, mels, tokenizers):

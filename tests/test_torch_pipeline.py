@@ -81,13 +81,17 @@ def test_fallback_temperatures_rerun_failing_chunks(nano_ckpt, speech35):
 
 
 def test_port_runs_without_jax(nano_ckpt):
-    """A fresh interpreter imports the port and transcribes; neither jax nor
-    any module of the JAX package is loaded."""
+    """A fresh interpreter imports the port (its CLI, orchestrator and
+    quantization too) and transcribes; neither jax nor any module of the JAX
+    package is loaded."""
     code = textwrap.dedent(
         f"""
         import sys
         import numpy as np
         import whisperx_tpu_torch
+        import whisperx_tpu_torch.__main__
+        import whisperx_tpu_torch.quant
+        import whisperx_tpu_torch.transcribe
         t = np.arange(16000 * 12) / 16000
         audio = (0.3 * np.sin(2 * np.pi * 220 * t) * (np.sin(2 * np.pi * 0.3 * t) > 0)).astype(np.float32)
         pipe = whisperx_tpu_torch.load_model(
@@ -151,13 +155,13 @@ def test_cuda_without_a_gpu_raises(monkeypatch):
 @pytest.mark.parametrize(
     "kwargs",
     [
-        dict(compute_type="int8"),
-        dict(compute_type="int4"),
+        dict(backend="standard"),
+        dict(vad_method="none"),
         dict(backend="sequential"),
         dict(vad_method=None),
         dict(vad_method="pyannote"),
         dict(vad_method="hybrid"),
-        dict(asr_options={"beam_size": 5}),
+        dict(asr_options={"draft_model": "self:1"}),
         dict(asr_options={"draft_model": "tiny"}),
         dict(asr_options={"word_timestamps": True}),
     ],
@@ -171,7 +175,7 @@ def test_unported_load_options_raise(kwargs):
 
 
 @pytest.mark.parametrize(
-    "option", [{"beam_size": 2}, {"word_timestamps": True}, {"draft_model": "self:1"}]
+    "option", [{"draft_model": "tiny"}, {"word_timestamps": True}, {"draft_model": "self:1"}]
 )
 def test_unported_call_options_raise(option):
     import whisperx_tpu_torch

@@ -77,7 +77,6 @@ DEFAULT_VAD_OPTIONS = {
 
 # option → (value that is supported, what brings the others)
 _LATER = {
-    "beam_size": (None, "beam search: ROADMAP.md, Queue 1, item 8"),
     "draft_model": (None, "speculative decoding: ROADMAP.md, Queue 1, item 8"),
     "word_timestamps": (False, "word timing: ROADMAP.md, Queue 1, item 9"),
 }
@@ -107,7 +106,7 @@ def warmup_audio(duration_s: float = 65.0) -> np.ndarray:
 
 
 def _max_decode_rows(model, *, kv_quant: bool, sample_len: Optional[int]) -> int:
-    """Max concurrent decode rows (batch × best_of tiles) whose cross-KV +
+    """Max concurrent decode rows (batch × beam/best_of tiles) whose cross-KV +
     self-KV fit an 8 GiB cache budget (as the JAX package's)."""
     dims = model.dims
     if sample_len is None:
@@ -295,7 +294,9 @@ class TranscriptionPipeline:
                 language=language,
                 temperature=temperature,
                 sample_len=o["sample_len"],
+                beam_size=o["beam_size"] if temperature == 0 else None,
                 best_of=o["best_of"] if temperature > 0 else None,
+                patience=o["patience"] if temperature == 0 else None,
                 length_penalty=o["length_penalty"],
                 prompt=(
                     self.model_prompt(initial_prompt) if initial_prompt else None
@@ -307,9 +308,12 @@ class TranscriptionPipeline:
                 without_timestamps=o["without_timestamps"],
                 max_initial_timestamp=o["max_initial_timestamp"],
             )
-            # best_of multiplies live decode rows: cap the tiled row count
-            # so the KV caches fit the cache budget
-            tile = int(opts.best_of) if opts.best_of and opts.best_of > 1 else 1
+            # beam search multiplies live decode rows by K, best_of sampling
+            # by n candidates: cap the tiled row count so the KV caches fit
+            # the cache budget
+            tile = opts.beam_size or (
+                int(opts.best_of) if opts.best_of and opts.best_of > 1 else 1
+            )
             if tile > 1:
                 max_rows = _max_decode_rows(
                     self.model, kv_quant=opts.kv_quant, sample_len=o["sample_len"]
@@ -453,8 +457,11 @@ def load_model(
 
     ``whisper_arch``: a converted checkpoint directory or a known
     architecture name (random weights from ``seed``). ``device``: "cuda"
-    (default; raises without a GPU) or "cpu". ``compute_type``: bfloat16
-    (default), float16 (run as bfloat16, as in the JAX package) or float32.
+    (default; raises without a GPU), "cuda:N" or "cpu". ``compute_type``:
+    bfloat16 (default), float16 (run as bfloat16, as in the JAX package),
+    float32, or int8 / int4: bf16 weights with the decoder's linears
+    weight-only quantized (``quant.quantize_model``; int8 runs kernel K4 on
+    CUDA).
     """
     from whisperx_tpu_torch.models.whisper import load_model as load_whisper
 
@@ -463,12 +470,8 @@ def load_model(
         "float16": torch.bfloat16,
         "float32": torch.float32,
     }
-    if compute_type in ("int8", "int4"):
-        raise NotImplementedError(
-            f"compute_type={compute_type!r} is the weight-quantized path "
-            "(ROADMAP.md, Queue 1, item 7)"
-        )
-    if compute_type not in dtype_map:
+    quantization = compute_type if compute_type in ("int8", "int4") else None
+    if quantization is None and compute_type not in dtype_map:
         raise ValueError(f"unknown compute_type {compute_type!r}")
     if backend in ("sequential", "standard"):
         raise NotImplementedError(f"backend={backend!r} is {_SEQUENTIAL}")
@@ -482,8 +485,15 @@ def load_model(
         chunk_size=opts["chunk_size"],
     )
     model = load_whisper(
-        whisper_arch, dtype=dtype_map[compute_type], device=device, seed=seed
+        whisper_arch,
+        dtype=torch.bfloat16 if quantization else dtype_map[compute_type],
+        device=device,
+        seed=seed,
     )
+    if quantization is not None:
+        from whisperx_tpu_torch.quant import quantize_model
+
+        model = quantize_model(model, mode=quantization)
     return TranscriptionPipeline(
         model=model,
         vad_model=vad_model,

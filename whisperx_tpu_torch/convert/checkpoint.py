@@ -5,6 +5,10 @@ A checkpoint directory holds (``whisperx_tpu/convert/checkpoint.py``):
   - ``weights.npz``   : flat ``{"a/b/0/w": array}`` mapping of the param tree
   - ``config.json``   : model family + dimensions + metadata
   - ``vocab.tiktoken``: optional BPE ranks file
+
+A weight-only quantized linear is stored as
+``<path>/__quantized_linear__/{qw,scale,b,meta}`` (``meta`` = [bits,
+group_size]); it becomes a ``quant.QuantizedLinear``.
 """
 
 from __future__ import annotations
@@ -21,18 +25,52 @@ _EMPTY_DICT = "__empty_dict__"
 _EMPTY_LIST = "__empty_list__"
 
 
-def _reject_quantized(flat: Dict[str, np.ndarray]) -> None:
-    if any(_QUANT_MARKER in key for key in flat):
-        raise NotImplementedError(
-            "weight-only quantized checkpoints come with the int8 path "
-            "(ROADMAP.md, Queue 1, item 7)"
-        )
+def _quantized_linear(node: dict, device=None):
+    """A ``QuantizedLinear`` from one ``__quantized_linear__`` node. Its
+    arrays are not cast (the JAX package's ``load_checkpoint`` leaves them
+    as stored: ``qw`` int8, ``scale`` and ``b`` f32)."""
+    from whisperx_tpu_torch.quant.core import QuantizedLinear
+
+    bits, group_size = (int(v) for v in node["meta"])
+
+    def tensor(arr):
+        return torch.tensor(np.asarray(arr)).to(device)  # a copy: arr may be read-only
+
+    b = node.get("b")
+    return QuantizedLinear(
+        tensor(node["qw"]), tensor(node["scale"]),
+        None if b is None else tensor(b),
+        bits=bits, group_size=group_size,
+    )
+
+
+def flatten_tree(model) -> Dict[str, np.ndarray]:
+    """A port model's weights in the layout of the JAX package's
+    ``flatten_tree``: ``a/b/0/w`` names, quantized linears under
+    ``<path>/__quantized_linear__/{qw,scale,b,meta}``, bf16 widened to f32
+    (numpy has no bf16)."""
+    from whisperx_tpu_torch.quant.core import QuantizedLinear
+
+    def array(t: torch.Tensor) -> np.ndarray:
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    flat = {name.replace(".", "/"): array(p) for name, p in model.named_parameters()}
+    for name, mod in model.named_modules():
+        if isinstance(mod, QuantizedLinear):
+            key = f"{name.replace('.', '/')}/{_QUANT_MARKER}"
+            flat[f"{key}/qw"] = array(mod.qw)
+            flat[f"{key}/scale"] = array(mod.scale)
+            if mod.b is not None:
+                flat[f"{key}/b"] = array(mod.b)
+            flat[f"{key}/meta"] = np.asarray([mod.bits, mod.group_size], np.int64)
+    return flat
 
 
 def unflatten_tree(flat: Dict[str, np.ndarray]):
     """``{"a/b/0/w": x}`` → nested dicts, with all-digit keys as lists
-    (the inverse of the JAX package's ``flatten_tree``)."""
-    _reject_quantized(flat)
+    and quantized nodes as ``QuantizedLinear``s (the inverse of the JAX
+    package's ``flatten_tree``)."""
     root: Dict[str, Any] = {}
     for key, value in flat.items():
         parts = key.split("/")
@@ -44,6 +82,8 @@ def unflatten_tree(flat: Dict[str, np.ndarray]):
     def listify(node):
         if not isinstance(node, dict):
             return node
+        if _QUANT_MARKER in node:
+            return _quantized_linear(node[_QUANT_MARKER])
         keys = list(node.keys())
         if keys and all(k.isdigit() for k in keys):
             return [listify(node[str(i)]) for i in range(len(keys))]
@@ -73,15 +113,43 @@ def params_from_numpy(
     ``flat`` maps the JAX names (``encoder/blocks/0/attn/query/w``, …, as
     ``flatten_tree`` writes them) to arrays; each lands in the module whose
     state-dict key is the same path with dots. Floating arrays are cast to
-    ``dtype`` (round to nearest even, as ``jnp.asarray(v, bf16)``). A missing
-    or unexpected name raises."""
-    from whisperx_tpu_torch.models.whisper.model import Whisper
+    ``dtype`` (round to nearest even, as ``jnp.asarray(v, bf16)``). Names
+    under ``<linear>/__quantized_linear__/`` replace that ``Linear`` with a
+    ``QuantizedLinear`` whose arrays keep their stored types, as the JAX
+    package's loader keeps them. A missing or unexpected name raises."""
+    from whisperx_tpu_torch.models.whisper.model import Linear, Whisper
 
     model = Whisper(dims, dtype=dtype, device=device, **model_kw)
-    state = model.state_dict()
+    marker = f"/{_QUANT_MARKER}/"
+    quantized: Dict[str, dict] = {}
+    for key, arr in flat.items():
+        if marker in key:
+            path, leaf = key.split(marker)
+            quantized.setdefault(path, {})[leaf] = arr
+    for path, node in quantized.items():
+        name = path.replace("/", ".")
+        try:
+            lin = model.get_submodule(name)
+        except AttributeError:
+            lin = None
+        if not isinstance(lin, Linear) or not {"qw", "scale", "meta"} <= set(node):
+            raise KeyError(f"checkpoint has a quantized linear {path!r} the model lacks")
+        qlin = _quantized_linear(node, device)
+        d_in, d_out = lin.w.shape
+        rows = d_in if qlin.bits == 8 else d_in // 2
+        if (
+            tuple(qlin.qw.shape) != (rows, d_out)
+            or tuple(qlin.scale.shape) != (d_in // qlin.group_size, d_out)
+            or (qlin.b is None) != (lin.b is None)
+        ):
+            raise ValueError(f"{path}: quantized shapes do not fit {tuple(lin.w.shape)}")
+        parent, _, leaf = name.rpartition(".")
+        setattr(model.get_submodule(parent), leaf, qlin)
+    # the full-precision parameters (the quantized tensors are buffers)
+    state = dict(model.named_parameters())
     want = {k.replace(".", "/") for k in state}
-    _reject_quantized(flat)
-    missing, extra = want - set(flat), set(flat) - want
+    plain = {k for k in flat if marker not in k}
+    missing, extra = want - plain, plain - want
     if missing or extra:
         raise KeyError(
             f"checkpoint does not match {dims}: missing {sorted(missing)[:5]}, "

@@ -1,7 +1,8 @@
 """Batched autoregressive decoding for Whisper.
 
-Counterpart of ``whisperx_tpu/decoding/decode.py`` (greedy and temperature
-sampling; beam search and speculative decoding come later). One decode is
+Counterpart of ``whisperx_tpu/decoding/decode.py`` (greedy, temperature
+sampling and beam search, ``decoding/beam.py``; speculative decoding comes
+later). One decode is
 encoder → cross-KV (int8 when ``kv_quant``) → prefill → a step loop with the
 logit filters in f32, over static shapes: a token buffer [B, sample_len], a
 self-attention cache sized to the decode budget, and finished rows that keep
@@ -314,11 +315,6 @@ def decode_dispatch(
     back; ``decode_finalize`` converts them. Sampling at temperature > 0
     draws from ``generator`` (a ``torch.Generator`` on the model's
     device), which the caller must pass."""
-    if options.beam_size is not None and options.temperature == 0:
-        raise NotImplementedError(
-            "beam search comes with the decode variants (ROADMAP.md, "
-            "Queue 1, item 8)"
-        )
     if options.temperature > 0 and generator is None:
         raise ValueError(
             "temperature > 0 samples: pass generator=torch.Generator(device)"
@@ -397,6 +393,34 @@ def decode_dispatch(
     )
 
     audio_in = shared_features if shared_features is not None else mel
+    handle = {
+        "b": b,
+        "single": single,
+        "tokenizer": tokenizer,
+        "language": language,
+        "language_probs": language_probs,
+        "options": options,
+        "keep_audio_features": keep_audio_features,
+    }
+
+    if options.beam_size is not None and options.temperature == 0:
+        from whisperx_tpu_torch.decoding.beam import _beam_decode
+
+        k = int(options.beam_size)
+        # upstream: patience multiplies how many finished sequences are
+        # collected before the search stops (patience=1 → beam_size)
+        max_candidates = max(k, round(k * (options.patience or 1.0)))
+        beam_device = _beam_decode(
+            model,
+            audio_in,
+            torch.tensor([initial] * b, dtype=torch.int64, device=mel.device),
+            cfg,
+            k,
+            max_candidates,
+            audio_is_features=shared_features is not None,
+        )
+        return {**handle, "beam_device": beam_device, "steps": beam_device[6]}
+
     # best_of: at temperature > 0, n independent candidates per row (the
     # batch tiled), keeping the one with the best length-normalized score
     n_cand = 1
@@ -416,21 +440,71 @@ def decode_dispatch(
         audio_is_features=shared_features is not None,
     )
     return {
+        **handle,
         "device": (tokens_buf, lengths, sum_logprobs, no_speech_probs, audio_features),
         "steps": steps,
-        "b": b,
         "n_cand": n_cand,
-        "single": single,
-        "tokenizer": tokenizer,
-        "language": language,
-        "language_probs": language_probs,
-        "options": options,
-        "keep_audio_features": keep_audio_features,
     }
+
+
+def _finalize_beam(handle: dict) -> Union[DecodingResult, List[DecodingResult]]:
+    from whisperx_tpu_torch.decoding.beam import rank_beams
+
+    (bank_toks, bank_lens, bank_scores, bank_count, live_toks, live_scores,
+     n_sampled, no_speech_probs, audio_features) = handle["beam_device"]
+    b = handle["b"]
+    tokenizer = handle["tokenizer"]
+    options = handle["options"]
+    keep_audio_features = handle["keep_audio_features"]
+    bank_toks, bank_lens, bank_scores, bank_count, live_toks, live_scores, nsp = (
+        t.cpu().numpy()
+        for t in (bank_toks, bank_lens, bank_scores, bank_count, live_toks,
+                  live_scores, no_speech_probs)
+    )
+    k = live_toks.shape[1]
+    results = []
+    for i in range(b):
+        # upstream finalize: the banked finished sequences; rows that banked
+        # fewer than beam_size fill up from the in-flight beams
+        n_bank = int(bank_count[i])
+        toks_list = [bank_toks[i, s] for s in range(n_bank)]
+        lens_list = [int(bank_lens[i, s]) for s in range(n_bank)]
+        scores_list = [float(bank_scores[i, s]) for s in range(n_bank)]
+        if n_bank < k:
+            for j in np.argsort(-live_scores[i]):
+                if len(toks_list) >= k:
+                    break
+                toks_list.append(live_toks[i, j])
+                lens_list.append(n_sampled)
+                scores_list.append(float(live_scores[i, j]))
+        cand_toks = np.stack(toks_list)
+        cand_lens = np.asarray(lens_list)
+        cand_scores = np.asarray(scores_list)
+        best, avg_lp = rank_beams(
+            cand_toks, cand_lens, cand_scores, options.length_penalty
+        )
+        toks = cand_toks[best, : cand_lens[best]].tolist()
+        text = tokenizer.decode(toks).strip()
+        results.append(
+            DecodingResult(
+                audio_features=audio_features[i] if keep_audio_features else None,
+                language=handle["language"],
+                language_probs=handle["language_probs"][i],
+                tokens=toks,
+                text=text,
+                avg_logprob=avg_lp,
+                no_speech_prob=float(nsp[i]),
+                temperature=0.0,
+                compression_ratio=compression_ratio(text) if text else np.nan,
+            )
+        )
+    return results[0] if handle["single"] else results
 
 
 def decode_finalize(handle: dict) -> Union[DecodingResult, List[DecodingResult]]:
     """Read a ``decode_dispatch`` handle back into ``DecodingResult``s."""
+    if "beam_device" in handle:
+        return _finalize_beam(handle)
     tokens_buf, lengths, sum_logprobs, no_speech_probs, audio_features = handle[
         "device"
     ]

@@ -15,7 +15,9 @@ it step by step so that f32 runs agree with the JAX package to rounding:
   - GELU is the tanh approximation (``jax.nn.gelu``'s default);
   - the encoder's self-attention goes through the K1 kernel
     (``ops/flash_attention.py``); the decoder's attention is plain matrix
-    products, as it is in the JAX package.
+    products, as it is in the JAX package;
+  - a weight-only quantized linear (``quant.QuantizedLinear``) goes through
+    ``quant_linear_apply``: K4 for int8 on CUDA (``ops/quant_matmul.py``).
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from torch import nn
 
 from whisperx_tpu_torch.models.whisper.config import ModelDimensions
 from whisperx_tpu_torch.ops.flash_attention import flash_attention
+from whisperx_tpu_torch.quant.core import QuantizedLinear, quant_linear_apply
 from whisperx_tpu_torch.utils.precision import reference_matmul
 
 # ---------------------------------------------------------------------------
@@ -237,12 +240,15 @@ def layer_norm(p: LayerNorm, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor
     return (y * p.g.float() + p.b.float()).to(x.dtype)
 
 
-def linear(p: Linear, x: torch.Tensor) -> torch.Tensor:
+def linear(p: Union[Linear, QuantizedLinear], x: torch.Tensor) -> torch.Tensor:
     """``x @ w`` accumulated in f32, cast to x's dtype, then the bias added
     in that dtype. A bf16 product on the card is one cuBLAS bf16 GEMM, which
     accumulates in f32 and rounds once at the output — the same rounding as
     JAX's ``dot(preferred_element_type=f32).astype(bf16)`` — so only the
-    CPU and f32 products widen their operands first."""
+    CPU and f32 products widen their operands first. A quantized layer goes
+    to ``quant_linear_apply`` (the bias after the product, as in JAX)."""
+    if isinstance(p, QuantizedLinear):
+        return quant_linear_apply(p, x)
     if x.is_cuda and x.dtype != torch.float32:
         y = torch.matmul(x, p.w)
     else:
@@ -417,11 +423,18 @@ def decoder_forward(
     cache: KVCache,
     offset: int,  # number of tokens already in the cache
     n_head: int,
+    beam_groups: int = 1,
 ) -> torch.Tensor:
     """One decoder pass over T_new tokens starting at ``offset``; writes the
     new self-attention K/V into ``cache`` and returns the logits
-    [B, T_new, vocab] in f32."""
-    t_new = tokens.shape[1]
+    [B, T_new, vocab] in f32.
+
+    ``beam_groups`` = K > 1: the token batch is B·K beam rows, each group of
+    K rows sharing one audio, and ``cache.cross_k/v`` hold the untiled
+    [B, 1500, H, Dh] K/V. Cross-attention is independent per query, so the K
+    beams fold into the query axis ([B·K, T, H, D] → [B, K·T, H, D]) and
+    attend against one copy; the self-attention cache stays per beam."""
+    b, t_new = tokens.shape
     cache_len = cache.self_k[0].shape[1]
     device = tokens.device
 
@@ -448,7 +461,11 @@ def decoder_forward(
 
         h = layer_norm(blk.cross_attn_ln, x)
         cq = _split_heads(linear(blk.cross_attn.query, h), n_head)
+        if beam_groups > 1:  # fold the beams into the query axis
+            cq = cq.reshape(b // beam_groups, beam_groups * t_new, n_head, -1)
         cattn = _cross_attention(cq, cache.cross_k[i], cache.cross_v[i])
+        if beam_groups > 1:  # unfold back to per-beam rows
+            cattn = cattn.reshape(b, t_new, n_head, -1)
         x = x + linear(blk.cross_attn.out, _merge_heads(cattn))
 
         h = layer_norm(blk.mlp_ln, x)

@@ -1,0 +1,200 @@
+"""CLI orchestrator: VAD and ASR over every input file, then the writers.
+
+Counterpart of ``whisperx_tpu/transcribe.py`` (reference
+whisperx/transcribe.py:17-250). The JAX package's alignment and diarization
+phases are not ported yet: their flags raise ``NotImplementedError`` naming
+the ROADMAP.md item that brings them, before anything is loaded, as do the
+other flags of stages the port does not run.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+import warnings
+
+import numpy as np
+
+from whisperx_tpu_torch.utils import LANGUAGES, TO_LANGUAGE_CODE, get_writer
+
+# ASR options assembled straight out of same-named CLI flags; the one
+# rename maps flag spelling -> TranscriptionOptions field spelling.
+_ASR_FLAG_FIELDS = (
+    "beam_size", "best_of", "patience", "length_penalty",
+    "compression_ratio_threshold", "no_speech_threshold",
+    "condition_on_previous_text", "initial_prompt", "suppress_numerals",
+    "hallucination_silence_threshold", "draft_model", "spec_gamma",
+)
+_ASR_FLAG_RENAMES = {"logprob_threshold": "log_prob_threshold"}
+_SUBTITLE_FLAGS = ("highlight_words", "max_line_count", "max_line_width")
+
+# (flag, predicate on the parsed flags, what brings it)
+_NOT_PORTED = (
+    ("alignment (drop it with --no_align)",
+     lambda a: not (a["no_align"] or a["task"] == "translate"),
+     "forced alignment: ROADMAP.md, Queue 1, item 11"),
+    ("--diarize", lambda a: a["diarize"], "diarization: ROADMAP.md, Queue 1, item 12"),
+    ("--word_timestamps True", lambda a: a["word_timestamps"],
+     "word timing: ROADMAP.md, Queue 1, item 9"),
+    ("--hallucination_silence_threshold",
+     lambda a: a["hallucination_silence_threshold"] is not None,
+     "word timing: ROADMAP.md, Queue 1, item 9"),
+    ("--draft_model", lambda a: a["draft_model"] is not None,
+     "speculative decoding: ROADMAP.md, Queue 1, item 8"),
+    ("--backend sequential", lambda a: a["backend"] == "sequential",
+     "the sequential seek loop: ROADMAP.md, Queue 1, item 8"),
+    ("--vad_method none", lambda a: a["vad_method"] == "none",
+     "the sequential seek loop: ROADMAP.md, Queue 1, item 8"),
+    ("--vad_method pyannote/hybrid", lambda a: a["vad_method"] in ("pyannote", "hybrid"),
+     "the other VADs: ROADMAP.md, Queue 1, item 10"),
+    ("--data_parallel on", lambda a: a["data_parallel"] == "on",
+     "data parallelism: ROADMAP.md, Queue 1, item 13"),
+)
+
+
+def _check_ported(args: dict) -> None:
+    for flag, asked, later in _NOT_PORTED:
+        if asked(args):
+            raise NotImplementedError(f"{flag} is not ported yet ({later})")
+
+
+def _canonical_language(code, model_name: str):
+    """Lowercase + alias-resolve a user language code; apply .en override."""
+    if code is not None:
+        code = code.lower()
+        code = TO_LANGUAGE_CODE.get(code, code)
+        if code not in LANGUAGES:
+            raise ValueError(f"Unsupported language: {code}")
+    if model_name.endswith(".en") and code != "en":
+        if code is not None:
+            warnings.warn(
+                f"dropping --language {code!r}: {model_name} only "
+                "understands English"
+            )
+        code = "en"
+    return code
+
+
+def _fallback_temperatures(t0: float, step) -> tuple:
+    """Temperature ladder for quality-gate retries: t0, t0+step, ... <= 1.0."""
+    if step is None:
+        return (t0,)
+    return tuple(np.arange(t0, 1.0 + 1e-6, step))
+
+
+def _torch_device(device: str, index: int) -> str:
+    """``--device cuda`` + ``--device_index N`` → ``cuda:N``."""
+    return f"cuda:{index}" if device == "cuda" else device
+
+
+def transcribe_task(args: dict, parser: argparse.ArgumentParser):
+    """Run the CLI's phases on parsed flags (``vars(parser.parse_args())``)
+    and return the pipeline it built, so an in-process caller can inspect
+    the model and its kernels' launch counts."""
+    _check_ported(args)
+    from whisperx_tpu_torch.asr import load_model
+    from whisperx_tpu_torch.audio import load_audio
+
+    take = args.pop  # every consumed flag leaves `args`; the remainder
+    # (language + subtitle flags) is validated below
+
+    model_name = take("model")
+    backend = take("backend")
+    batch_size = take("batch_size")
+    model_dir = take("model_dir")
+    take("model_cache_only")  # the port never fetches anything
+    output_dir = take("output_dir")
+    output_format = take("output_format")
+    device, device_index = take("device"), take("device_index")
+    compute_type = take("compute_type")
+    verbose = take("verbose")
+    word_timestamps = take("word_timestamps")
+    log_json = take("log_json", None)
+
+    os.makedirs(output_dir, exist_ok=True)
+
+    task = take("task")
+    for unused in (
+        "align_model", "interpolate_method", "no_align", "return_char_alignments",
+        "hf_token", "diarize", "min_speakers", "max_speakers", "diarize_model",
+        "diarize_clustering", "data_parallel",
+    ):
+        take(unused, None)  # their stages are refused above or not asked for
+    vad_options = {
+        "chunk_size": take("chunk_size"),
+        "vad_onset": take("vad_onset"),
+        "vad_offset": take("vad_offset"),
+    }
+    vad_method = take("vad_method")
+    print_progress = take("print_progress")
+    if take("speaker_embeddings"):
+        warnings.warn("ignoring --speaker_embeddings: requires --diarize")
+    for ignored in ("fp16", "segment_resolution", "threads"):
+        take(ignored, None)  # accepted for CLI parity, no-ops as in JAX
+
+    args["language"] = _canonical_language(args["language"], model_name)
+    language = args["language"] or "en"
+
+    asr_options = {f: take(f) for f in _ASR_FLAG_FIELDS}
+    asr_options.update(
+        (field, take(flag)) for flag, field in _ASR_FLAG_RENAMES.items()
+    )
+    asr_options["temperatures"] = _fallback_temperatures(
+        take("temperature"), take("temperature_increment_on_fallback")
+    )
+    asr_options["suppress_tokens"] = [
+        int(t) for t in take("suppress_tokens").split(",")
+    ]
+    asr_options["word_timestamps"] = word_timestamps
+
+    writer = get_writer(output_format, output_dir)
+    # alignment is not ported, so every run is an unaligned one
+    for flag in _SUBTITLE_FLAGS:
+        if args[flag]:
+            parser.error(f"--{flag} requires alignment (drop --no_align)")
+    writer_args = {flag: take(flag) for flag in _SUBTITLE_FLAGS}
+
+    # Part 1: VAD & ASR over every input file.
+    model_path = (
+        model_name if model_dir is None else os.path.join(model_dir, model_name)
+    )
+    t0 = time.perf_counter()
+    model = load_model(
+        model_path,
+        device=_torch_device(device, device_index), compute_type=compute_type,
+        language=args["language"], task=task, asr_options=asr_options,
+        vad_method=vad_method, vad_options=vad_options,
+        backend=backend, batch_size=batch_size,
+    )
+    if verbose:
+        print(
+            f">>Loaded {model.model.name} on {model.device} ({compute_type}) in "
+            f"{time.perf_counter() - t0:.2f} s"
+        )
+    chunk_size = vad_options["chunk_size"]
+
+    # duplicates (shell-glob overlap, scripted lists) would transcribe
+    # twice and write the same output files twice — process each once
+    audio_paths = list(dict.fromkeys(take("audio")))
+    results = {}
+    for audio_path in audio_paths:
+        print(">>Performing transcription...")
+        results[audio_path] = model.transcribe(
+            load_audio(audio_path),
+            batch_size=batch_size, chunk_size=chunk_size,
+            print_progress=print_progress, verbose=verbose,
+        )
+
+    # Part 2: write outputs.
+    for audio_path, result in results.items():
+        result = dict(result)
+        result.setdefault("language", language)
+        writer(result, audio_path, writer_args)
+
+    if log_json:
+        from whisperx_tpu_torch.utils.metrics import GLOBAL_TRACKER
+
+        GLOBAL_TRACKER.emit_jsonl(log_json, extra={"files": len(results)})
+        print(f">>Metrics written to {log_json}")
+    return model

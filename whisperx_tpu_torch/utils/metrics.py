@@ -3,10 +3,11 @@
 from __future__ import annotations
 
 import contextlib
+import json
 import time
 from collections import defaultdict
 from dataclasses import dataclass, field
-from typing import Dict
+from typing import Dict, Optional
 
 
 @dataclass
@@ -73,6 +74,52 @@ class RTFTracker:
             }
             for name, s in dict(self.stages).items()
         }
+
+    def emit_jsonl(self, path: Optional[str] = None, extra: Optional[dict] = None) -> str:
+        """Structured export (the CLI's ``--log_json``): one JSON line per
+        stage, then a summary line with tokens/s and batch fill. Appended to
+        ``path`` when given; the text is returned either way."""
+        lines = []
+        stages = dict(self.stages)
+        for name, s in stages.items():
+            lines.append(
+                json.dumps(
+                    {
+                        "event": "stage",
+                        "stage": name,
+                        "calls": s.calls,
+                        "total_s": round(s.total_s, 4),
+                        "audio_s": round(s.audio_s, 2),
+                        "rtf": round(s.rtf, 2),
+                        "min_s": round(s.min_s, 4) if s.calls else 0.0,
+                        "max_s": round(s.max_s, 4),
+                    }
+                )
+            )
+        total_s = sum(s.total_s for s in stages.values())
+        audio_s = max((s.audio_s for s in stages.values()), default=0.0)
+        summary = {
+            "event": "summary",
+            "total_s": round(total_s, 4),
+            "audio_s": round(audio_s, 2),
+            "rtf": round(audio_s / total_s, 2) if total_s > 0 else 0.0,
+        }
+        decode = stages.get("decode")
+        if self.counters.get("tokens_decoded") and decode and decode.total_s > 0:
+            summary["tokens_per_s"] = round(
+                self.counters["tokens_decoded"] / decode.total_s, 1
+            )
+        if self.counters.get("batch_slots"):
+            summary["batch_fill"] = round(
+                self.counters["batch_used"] / self.counters["batch_slots"], 3
+            )
+        summary.update(extra or {})
+        lines.append(json.dumps(summary))
+        text = "\n".join(lines) + "\n"
+        if path:
+            with open(path, "a") as f:
+                f.write(text)
+        return text
 
 
 GLOBAL_TRACKER = RTFTracker()
