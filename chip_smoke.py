@@ -11,7 +11,9 @@ Phases, each of which passes or raises (the script then exits non-zero):
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the shapes the main paths give it, with stated tolerances; times of the
      kernel, the plain version and one PyTorch library call (the yardstick,
-     never used by the port), and the bound for the same work;
+     never used by the port), and the bound for the same work: K1, K1b and
+     K2 (``flash_attention.cu``), K4 (``quant_matmul.cu``), K3, K3kt and
+     K3i8 (``cross_attention_decode.cu``);
   4. main path: ``whisperx_tpu_torch.load_model("large-v3", ...)`` at full
      width with random weights, ``.transcribe`` of ~120 s of synthetic
      speech; the kernel launch counts are reset just before and read just
@@ -19,6 +21,16 @@ Phases, each of which passes or raises (the script then exits non-zero):
   5. decode profile: the main path's model decodes one batch of 8 chunks
      greedily for 48 steps, timed on the host clock over 5 runs, then once
      under ``torch.profiler`` (device busy share, kernels by device time);
+     then the same with the cross-decode opt-in
+     (``WHISPERX_TPU_CROSS_DECODE=1``): K3 must launch once per decoder
+     layer per sampled step, and one step's logits must agree with the
+     einsum route's;
+  5b. ``transcribe_many`` of three requests through the main path's
+     pipeline with the opt-in: one result per request, segments inside
+     their own audio, K3 launched n_text_layer × the sampled steps, K1
+     32 × the encoder passes;
+  5c. sequential path: ``load_model("large-v3", vad_method="none")``, the
+     seek loop over ~40 s; K1 launched 32 × the window decodes;
   6. CLI path: ``python -m whisperx_tpu_torch clip.wav --model large-v3
      --compute_type int8 --vad_method energy --language en --no_align -f all``
      (beam 5, the CLI default, at one temperature), driven in-process through
@@ -26,8 +38,9 @@ Phases, each of which passes or raises (the script then exits non-zero):
      read: every int8 decoder linear must have gone through K4; then the
      decode profile of phase 5 for that int8 model with 5 beams;
   7. small model: f32 ``test-nano`` through the same pipeline on CUDA and on
-     the CPU with the same weights; segments and greedy tokens must match;
-     then quantized to int8, its greedy and beam-2 tokens must match too.
+     the CPU with the same weights; segments and greedy tokens must match,
+     and the seek loop's segments and tokens too; then quantized to int8,
+     its greedy and beam-2 tokens must match too.
 
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA GPU, or without the
@@ -36,6 +49,7 @@ package beside this file, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import importlib
 import itertools
 import json
 import math
@@ -53,11 +67,22 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 
 L2_BYTES = 50 * 2**20
-KERNEL_SOURCES = ("flash_attention", "quant_matmul")
+KERNEL_SOURCES = ("flash_attention", "quant_matmul", "cross_attention_decode")
+CROSS_DECODE_FLAG = "WHISPERX_TPU_CROSS_DECODE"
 
 MAIN_AUDIO_S = 120.0
 PROFILE_BATCH, PROFILE_STEPS, PROFILE_RUNS = 8, 48, 5
 CLI_AUDIO_S = 60.0
+MANY_AUDIO_S = (20.0, 33.0, 47.0)  # transcribe_many's three requests
+SEQ_AUDIO_S = 40.0  # the seek loop: two windows
+# the ladders of the new phases: two temperatures keep the fallback path
+# (and its sampling) in the run while bounding random weights' decodes,
+# which never emit EOT
+SHORT_LADDER = (0.0, 0.2)
+# one decode step's logits, K3 against the einsum route: they differ by the
+# query's bf16 rounding and where P is rounded (by ~0.035 on large-v3's
+# random bf16 weights); a wrong tile max or a lost tile moves them by more
+STEP_LOGIT_TOL = 0.1
 
 
 def synth_speech(duration_s: float, sr: int = 16000, seed: int = 0):
@@ -78,7 +103,11 @@ def synth_speech(duration_s: float, sr: int = 16000, seed: int = 0):
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn()`` over ``iters`` calls, by CUDA events."""
+    """Mean device time of ``fn()`` over ``iters`` calls, by CUDA events.
+    A sleep kernel (about 1 ms per call) holds the stream while the host
+    enqueues every call, so the calls run back to back and a kernel shorter
+    than its Python wrapper's host time is timed by the device, not by the
+    host."""
     import torch
 
     for _ in range(warmup):
@@ -86,12 +115,47 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(2_000_000 * iters)  # cycles: ~1 ms each at ~2 GHz
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_entry(name, source, replaces, err, ms, plain_ms, bytes_moved, ops, peak, library_ms):
+    """One entry of the ``kernels`` line; the bound is the larger of the
+    bytes over the memory rate and the operations over ``peak``."""
+    bytes_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    ops_ms = ops / peak * 1e3
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": f"whisperx_tpu_torch/ops/csrc/{source}",
+        "replaces": replaces,
+        "launches": None,  # set from the main path's run
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "library_ms": library_ms,
+    }
+
+
+class cross_decode_opt_in:
+    """``WHISPERX_TPU_CROSS_DECODE=1`` inside the block, as before after."""
+
+    def __enter__(self):
+        self.saved = os.environ.get(CROSS_DECODE_FLAG)
+        os.environ[CROSS_DECODE_FLAG] = "1"
+
+    def __exit__(self, *exc):
+        if self.saved is None:
+            os.environ.pop(CROSS_DECODE_FLAG, None)
+        else:
+            os.environ[CROSS_DECODE_FLAG] = self.saved
 
 
 def phase_card() -> str:
@@ -120,29 +184,53 @@ def phase_build() -> None:
                 print(f"[build] {name}: {line.strip()}")
 
 
-def attention_case(bh, t, d, dtype, seed=0):
-    """Seeded q/k/v [bh, t, d]. q is scaled by 3 so the softmax is peaked
-    (a flat one would average v to ~0) and v by 1/4 so the outputs are of
-    magnitude ≲ 1, where one bf16 ulp is ≤ 3.9e-3: the 1e-2 tolerance then
-    allows about two ulps of rounding-order difference."""
+def attention_case(bh, t, d, dtype, seed=0, tk=None):
+    """Seeded q [bh, t, d] and k/v [bh, tk or t, d]. q is scaled by 3 so the
+    softmax is peaked (a flat one would average v to ~0) and v by 1/4 so
+    the outputs are of magnitude ≲ 1, where one bf16 ulp is ≤ 3.9e-3: the
+    1e-2 tolerance then allows about two ulps of rounding-order
+    difference."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v = (
-        torch.randn((bh, t, d), generator=g, device="cuda", dtype=torch.float32)
-        for _ in range(3)
+        torch.randn((bh, n, d), generator=g, device="cuda", dtype=torch.float32)
+        for n in (t, tk or t, tk or t)
     )
     return (q * 3.0).to(dtype), k.to(dtype), (v * 0.25).to(dtype)
 
 
-def phase_kernels() -> dict:
+def check_attention(label, out, ref, tol, shape):
+    import torch
+
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    mag = ref.float().abs().max().item()
+    ok = math.isfinite(err) and err <= tol and out.shape == shape
+    print(
+        f"[kernels] {label}: {list(shape)} max_abs_err {err:.3e} "
+        f"(tol {tol:g}, |ref| max {mag:.3f}) {'ok' if ok else 'FAIL'}"
+    )
+    if not ok:
+        raise AssertionError(f"{label}: max_abs_err {err} > {tol}")
+    return err
+
+
+def phase_kernels() -> list:
     """K1 against its plain version at the main-path shape (large-v3, batch
-    8: [160, 1500, 64] bf16) and the variants the kernel takes."""
+    8: [160, 1500, 64] bf16) and the variants the kernel takes; K1b (its
+    ``mxu_sum`` mode) at K1's shape; K2 causal at the same shape in bf16
+    and f32, with fewer queries than keys, and non-causal over 3000 keys
+    ([20, 3000, 64], past the whole-K kernel's 2048). K1b and K2 have no
+    caller in the package: these are their shapes had they one."""
     import torch
     import torch.nn.functional as F
 
     from whisperx_tpu_torch.ops.flash_attention import (
+        K2_BLOCK_KEYS,
         _attention_reference,
+        _flash_reference,
+        flash_attention_tiled,
         wholek_attention,
     )
 
@@ -155,53 +243,221 @@ def phase_kernels() -> dict:
         ("D=32 bf16", 16, 1500, 32, torch.bfloat16, False, 1e-2),
         ("D=32 f32", 16, 1500, 32, torch.float32, False, 1e-4),
     ]
-    main = None
+    entries = []
+
+    def timed(name, source_line, fn, plain, library, bytes_moved, ops, dtype, err):
+        ms = cuda_ms(fn)
+        plain_ms = cuda_ms(plain, iters=5)
+        library_ms = cuda_ms(library)
+        e = kernel_entry(
+            name, "flash_attention.cu", f"whisperx_tpu/ops/flash_attention.py:{source_line}",
+            err, ms, plain_ms, bytes_moved, ops, PEAK_OPS_PER_S[str(dtype)], library_ms,
+        )
+        print(
+            f"[kernels] {name} timing: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"sdpa {library_ms:.4f} ms, bound {e['bound_ms']:.4f} ms by {e['bound_by']}"
+        )
+        return e
+
     for label, bh, t, d, dtype, skip_max, tol in cases:
         q, k, v = attention_case(bh, t, d, dtype)
         out = wholek_attention(q, k, v, skip_max=skip_max)
-        torch.cuda.synchronize()
         ref = _attention_reference(q, k, v, skip_max=skip_max)
-        err = (out.float() - ref.float()).abs().max().item()
-        mag = ref.float().abs().max().item()
-        ok = math.isfinite(err) and err <= tol and out.shape == q.shape
-        print(
-            f"[kernels] K1 {label}: [{bh},{t},{d}] max_abs_err {err:.3e} "
-            f"(tol {tol:g}, |ref| max {mag:.3f}) {'ok' if ok else 'FAIL'}"
-        )
-        if not ok:
-            raise AssertionError(f"K1 {label}: max_abs_err {err} > {tol}")
-        if main is None:
-            ms = cuda_ms(lambda: wholek_attention(q, k, v))
-            plain_ms = cuda_ms(lambda: _attention_reference(q, k, v), iters=5)
-            # [1, BH, T, D]: 4-D so PyTorch can pick its flash backend
-            library_ms = cuda_ms(
-                lambda: F.scaled_dot_product_attention(q[None], k[None], v[None])
-            )
+        err = check_attention(f"K1 {label}", out, ref, tol, q.shape)
+        if not entries:
             esize = q.element_size()
-            bytes_ms = 4 * bh * t * d * esize / PEAK_BYTES_PER_S * 1e3
-            ops_ms = 4 * bh * t * t * d / PEAK_OPS_PER_S[str(dtype)] * 1e3
-            bound_ms = max(bytes_ms, ops_ms)
-            main = {
-                "name": "K1 wholek_attention",
-                "route": "cuda",
-                "source": "whisperx_tpu_torch/ops/csrc/flash_attention.cu",
-                "replaces": "whisperx_tpu/ops/flash_attention.py:125",
-                "launches": None,
-                "max_abs_err": err,
-                "ms": ms,
-                "plain_ms": plain_ms,
-                "bound_ms": bound_ms,
-                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-                "library_ms": library_ms,
-            }
-            print(
-                f"[kernels] K1 main timing: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                f"(ops {ops_ms:.4f}, bytes {bytes_ms:.4f})"
+            # [1, BH, T, D]: 4-D so PyTorch can pick its flash backend
+            entries.append(timed(
+                "K1 wholek_attention", 125, lambda: wholek_attention(q, k, v),
+                lambda: _attention_reference(q, k, v),
+                lambda: F.scaled_dot_product_attention(q[None], k[None], v[None]),
+                4 * bh * t * d * esize, 4 * bh * t * t * d, dtype, err,
+            ))
+        del q, k, v, out, ref
+
+    # K1b: the denominator of the rounded weights
+    bh, t, d = 160, 1500, 64
+    q, k, v = attention_case(bh, t, d, torch.bfloat16, seed=1)
+    out = wholek_attention(q, k, v, mxu_sum=True)
+    err = check_attention(
+        "K1b mxu_sum bf16", out, _attention_reference(q, k, v, mxu_sum=True), 1e-2, q.shape
+    )
+    entries.append(timed(
+        "K1b wholek_attention(mxu_sum)", 163, lambda: wholek_attention(q, k, v, mxu_sum=True),
+        lambda: _attention_reference(q, k, v, mxu_sum=True),
+        lambda: F.scaled_dot_product_attention(q[None], k[None], v[None]),
+        4 * bh * t * d * 2, 4 * bh * t * t * d, torch.bfloat16, err,
+    ))
+    del q, k, v, out
+
+    k2_cases = [
+        # (label, bh, tq, tk, d, dtype, causal, tol, timed)
+        ("causal bf16", 160, 1500, 1500, 64, torch.bfloat16, True, 1e-2, True),
+        ("causal f32", 160, 1500, 1500, 64, torch.float32, True, 1e-4, False),
+        ("Tk 3000 bf16", 20, 3000, 3000, 64, torch.bfloat16, False, 1e-2, True),
+        ("causal Tq 500 < Tk 1500 bf16", 20, 500, 1500, 64, torch.bfloat16, True, 1e-2, False),
+        ("causal ragged D=32 bf16", 16, 1000, 1000, 32, torch.bfloat16, True, 1e-2, False),
+        ("causal D=32 f32", 16, 1000, 1000, 32, torch.float32, True, 1e-4, False),
+    ]
+    for label, bh, tq, tk, d, dtype, causal, tol, is_timed in k2_cases:
+        q, k, v = attention_case(bh, tq, d, dtype, seed=2, tk=tk)
+        out = flash_attention_tiled(q, k, v, causal=causal)
+        ref = _flash_reference(q, k, v, causal=causal, bk=K2_BLOCK_KEYS)
+        err = check_attention(f"K2 {label}", out, ref, tol, q.shape)
+        if is_timed:
+            esize = q.element_size()
+            ops = 2 * bh * tq * tk * d if causal else 4 * bh * tq * tk * d
+            e = timed(
+                f"K2 flash_attention_tiled ({label})", 33,
+                lambda: flash_attention_tiled(q, k, v, causal=causal),
+                lambda: _flash_reference(q, k, v, causal=causal, bk=K2_BLOCK_KEYS),
+                lambda: F.scaled_dot_product_attention(q[None], k[None], v[None], is_causal=causal),
+                2 * bh * (tq + tk) * d * esize, ops, dtype, err,
             )
+            if causal:
+                e["name"] = "K2 flash_attention_tiled"
+                entries.append(e)
         del q, k, v, out, ref
     torch.cuda.empty_cache()
-    return main
+    return entries
+
+
+def cross_decode_case(b, t, h, dh, seed=0):
+    """Seeded spread bf16 queries [B, H, D] with rows of N(0, 0.005²) (so
+    the scores Σ q·k over 64 int8 values are of magnitude ~3), int8 k/v
+    uniform in [-127, 127], the per-head int8 queries with their scales,
+    and the packed query before its bf16 rounding [B, D] f32."""
+    import torch
+
+    from whisperx_tpu_torch.ops.cross_attention_decode import spread_queries
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    d = h * dh
+    q32 = 0.005 * torch.randn((b, d), generator=g, device="cuda")
+    qs = spread_queries(q32.to(torch.bfloat16), h)
+    k8, v8 = (
+        torch.randint(-127, 128, (b, t, d), generator=g, device="cuda", dtype=torch.int8)
+        for _ in range(2)
+    )
+    sq = torch.clamp(qs.float().abs().amax(dim=-1, keepdim=True) / 127.0, min=1e-10)
+    qs8 = torch.clamp(torch.round(qs.float() / sq), -127, 127).to(torch.int8)
+    return qs, k8, v8, qs8, sq, q32
+
+
+def phase_k3() -> list:
+    """K3, K3kt and K3i8 against their plain versions at the large-v3 decode
+    step (B 8, T 1500, H 20, Dh 64) and at B 1, T 300 (a tile that
+    overhangs), and test-nano's head size (H 2, Dh 32). Tolerance: atol
+    1e-2 (|out| ≲ 120). The kernel walks the plain version's 512-key tiles
+    in order, so only f32 sum orders differ, which moves the outputs by
+    ~1e-4. A kernel that left out the bf16 rounding of the query or of P
+    would be off by ~0.05 to 0.4: the control (the plain version on the
+    unrounded f32 query) must fail the same tolerance. Timed at
+    the decode step with 4 copies of K/V cycled (123 MB, past the 50 MB L2:
+    a decode step reads 32 layers' K/V, each once). Yardstick: one
+    ``scaled_dot_product_attention`` on K/V widened to bf16 beforehand."""
+    import torch
+    import torch.nn.functional as F
+
+    from whisperx_tpu_torch.ops.cross_attention_decode import (
+        _cross_decode_reference,
+        cross_decode,
+        cross_decode_i8,
+        cross_decode_kt,
+        spread_queries,
+    )
+
+    tol = 1e-2
+    variants = {
+        "K3": (cross_decode, 57, lambda qs, k8, v8, qs8, sq, q32: (qs, k8, v8), {}),
+        "K3kt": (
+            cross_decode_kt, 148,
+            lambda qs, k8, v8, qs8, sq, q32: (qs, k8.transpose(1, 2).contiguous(), v8),
+            {"k_transposed": True},
+        ),
+        "K3i8": (cross_decode_i8, 232, lambda qs, k8, v8, qs8, sq, q32: (qs8, sq, k8, v8), None),
+    }
+    entries = []
+    for b, t, h, dh in ((8, 1500, 20, 64), (1, 300, 20, 64), (2, 1500, 2, 32)):
+        case = cross_decode_case(b, t, h, dh, seed=t + b)
+        for name, (fn, line, args_of, ref_kw) in variants.items():
+            args = args_of(*case)
+            out = fn(*args)
+            torch.cuda.synchronize()
+            if ref_kw is None:  # K3i8: qs8, sq, k8, v8
+                ref = _cross_decode_reference(args[0], args[2], args[3], sq=args[1])
+            else:
+                ref = _cross_decode_reference(args[0], args[1], args[2], **ref_kw)
+            err = (out - ref).abs().max().item()
+            mag = ref.abs().max().item()
+            ok = math.isfinite(err) and err <= tol and out.shape == (b, 1, h * dh)
+            print(
+                f"[kernels] {name} B={b} T={t} H={h} Dh={dh}: max_abs_err {err:.3e} "
+                f"(tol {tol:g}, |ref| max {mag:.3f}) {'ok' if ok else 'FAIL'}"
+            )
+            if not ok:
+                raise AssertionError(f"{name} B={b} T={t}: max_abs_err {err} > {tol}")
+            if name == "K3":
+                control = _cross_decode_reference(spread_queries(case[5], h), case[1], case[2])
+                c_err = (out - control).abs().max().item()
+                print(
+                    f"[kernels] K3 B={b} T={t} control (plain version on the f32 query): "
+                    f"max_abs_err {c_err:.3e}, must exceed tol {tol:g} "
+                    f"{'ok' if c_err > tol else 'FAIL'}"
+                )
+                if not c_err > tol:
+                    raise AssertionError(f"K3 control {c_err} within {tol}: the check cannot tell")
+                del control
+            if (b, t) != (8, 1500):
+                continue
+            kv_bytes = 2 * b * t * h * dh
+            copies = math.ceil(2 * L2_BYTES / kv_bytes)
+            sets = [  # fresh copies of K and V; the queries are shared
+                tuple(a.clone() if a.numel() == b * t * h * dh else a for a in args)
+                for _ in range(copies)
+            ]
+            cycle = itertools.cycle(sets)
+            ms = cuda_ms(lambda: fn(*next(cycle)))
+            if ref_kw is None:
+                plain = lambda: (lambda a: _cross_decode_reference(a[0], a[2], a[3], sq=a[1]))(next(cycle))
+            else:
+                plain = lambda: (lambda a: _cross_decode_reference(*a, **ref_kw))(next(cycle))
+            plain_ms = cuda_ms(plain, iters=5)
+            # the yardstick: [B, H, 1, Dh] queries over [B, H, T, Dh] bf16 K/V
+            widened = [
+                tuple(x.reshape(b, t, h, dh).transpose(1, 2).to(torch.bfloat16).contiguous()
+                      for x in (case[1], case[2]))
+                for _ in range(max(1, math.ceil(2 * L2_BYTES / (2 * kv_bytes))))
+            ]
+            qh = case[0].float().sum(1).reshape(b, 1, h, dh).transpose(1, 2).to(torch.bfloat16)
+            wcycle = itertools.cycle(widened)
+            library_ms = cuda_ms(
+                lambda: F.scaled_dot_product_attention(qh, *next(wcycle), scale=1.0)
+            )
+            # what the function needs: int8 K and V, each head's own query
+            # slice (B·D elements, not the [B, H, D] spread), the K3i8
+            # query scales
+            in_bytes = kv_bytes + b * h * dh * args[0].element_size()
+            if ref_kw is None:
+                in_bytes += b * h * 4
+            moved = in_bytes + out.numel() * 4
+            peak = 1979e12 if name == "K3i8" else PEAK_OPS_PER_S["torch.bfloat16"]
+            e = kernel_entry(
+                f"{name} cross_attention_decode", "cross_attention_decode.cu",
+                f"whisperx_tpu/ops/cross_attention_decode.py:{line}", err, ms, plain_ms,
+                moved, 4 * b * t * h * dh, peak, library_ms,
+            )
+            print(
+                f"[kernels] {name} timing ({copies} K/V copies cycled): kernel {ms:.4f} ms, "
+                f"plain {plain_ms:.4f} ms, sdpa on bf16 K/V {library_ms:.4f} ms, "
+                f"bound {e['bound_ms']:.4f} ms by {e['bound_by']} "
+                f"({moved / 1e6:.4f} MB moved, {kv_bytes / 1e6:.2f} MB of it int8 K/V)"
+            )
+            entries.append(e)
+            del sets, widened
+        del case
+    torch.cuda.empty_cache()
+    return entries
 
 
 def quant_case(m, k, n, dtype, group_size=64, seed=0):
@@ -369,14 +625,16 @@ def phase_main_path(k1: dict):
         f"batch fill {counters.get('batch_used', 0):.0f}/{counters.get('batch_slots', 0):.0f}; "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
     )
-    return pipe.model
+    return pipe
 
 
-def phase_decode_profile(model, tag: str = "profile", beam_size=None) -> None:
+def phase_decode_profile(model, tag: str = "profile", beam_size=None, k3=None) -> None:
     """Where one batched decode spends its time: PROFILE_BATCH 30 s mels of
     the pipeline's warm-up signal, decoded for PROFILE_STEPS tokens (encoder
     and prefill included) with the main path's options: greedily, or with
-    ``beam_size`` beams (the CLI's default of 5)."""
+    ``beam_size`` beams (the CLI's default of 5). ``k3``: under the
+    cross-decode opt-in, the K3 kernel entry; every run must launch it once
+    per decoder layer per sampled step, and its device time is printed."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -392,9 +650,14 @@ def phase_decode_profile(model, tag: str = "profile", beam_size=None) -> None:
         language="en", sample_len=PROFILE_STEPS, kv_quant=True, beam_size=beam_size
     )
 
+    from whisperx_tpu_torch.ops.cross_attention_decode import cross_attention_decode
+
     def run():
+        cross_attention_decode.launches = 0
         h = decode_dispatch(model, mels, opts)
         torch.cuda.synchronize()
+        want = model.dims.n_text_layer * h["steps"] if k3 is not None else 0
+        assert cross_attention_decode.launches == want, (cross_attention_decode.launches, want)
         return h["steps"]
 
     run()  # warm-up: allocator, cuBLAS handles
@@ -425,6 +688,183 @@ def phase_decode_profile(model, tag: str = "profile", beam_size=None) -> None:
             f"[{tag}] {e.self_device_time_total / 1e3:10.3f} ms "
             f"{e.count:7d} calls  {e.key[:90]}"
         )
+    if k3 is not None:
+        k3_events = [e for e in events if "cross_decode_kernel" in e.key]
+        k3_ms = sum(e.self_device_time_total for e in k3_events) / 1e3
+        k3_calls = sum(e.count for e in k3_events)
+        print(
+            f"[{tag}] K3 launched {model.dims.n_text_layer} x {steps} times per decode; "
+            f"its device time {k3_ms:.3f} ms over {k3_calls} launches "
+            f"({k3_ms / max(k3_calls, 1):.4f} ms each, {k3_ms / wall / 1e3:.1%} of the decode's wall)"
+        )
+
+
+def phase_cross_decode_step(model) -> None:
+    """One decode step's logits through K3 (the opt-in) against the einsum
+    route, on the profile's batch: the same prefill, then one t_new = 1
+    pass each way. The routes differ in where P is rounded to bf16 (each
+    512-key tile's running max against the full row's max) and in the
+    kernel's query rounding to bf16 (the model is bf16 already); both then
+    go through 32 bf16 layers. Tolerance: STEP_LOGIT_TOL."""
+    import numpy as np
+    import torch
+
+    from whisperx_tpu_torch.asr import warmup_audio
+    from whisperx_tpu_torch.audio import log_mel_batch
+    from whisperx_tpu_torch.models.whisper.model import (
+        KVCache,
+        decoder_forward,
+        encoder_forward,
+        precompute_cross_kv,
+        quantize_kv,
+    )
+    from whisperx_tpu_torch.ops.cross_attention_decode import cross_attention_decode
+
+    dims = model.dims
+    mels = log_mel_batch(np.stack([warmup_audio(30.0)] * PROFILE_BATCH), dims.n_mels, device="cuda")
+    with torch.inference_mode():
+        feats = encoder_forward(model.encoder, mels.to(model.dtype), dims.n_audio_head)
+        ck, cv = precompute_cross_kv(model.decoder, feats, dims.n_text_head)
+        shape = (PROFILE_BATCH, 64, dims.n_text_head, dims.n_text_state // dims.n_text_head)
+        cache = KVCache(
+            [torch.zeros(shape, dtype=model.dtype, device="cuda") for _ in range(dims.n_text_layer)],
+            [torch.zeros(shape, dtype=model.dtype, device="cuda") for _ in range(dims.n_text_layer)],
+            [quantize_kv(x) for x in ck], [quantize_kv(x) for x in cv],
+        )
+        prefix = torch.tensor([[50258, 50259, 50360]] * PROFILE_BATCH, device="cuda")
+        decoder_forward(model.decoder, prefix, cache, 0, dims.n_text_head)
+        step = torch.full((PROFILE_BATCH, 1), 50365, device="cuda")
+        einsum = decoder_forward(model.decoder, step, cache, 3, dims.n_text_head)
+        with cross_decode_opt_in():
+            cross_attention_decode.launches = 0
+            kernel = decoder_forward(model.decoder, step, cache, 3, dims.n_text_head)
+            torch.cuda.synchronize()
+            assert cross_attention_decode.launches == dims.n_text_layer
+    err = (kernel - einsum).abs().max().item()
+    same = (kernel.argmax(-1) == einsum.argmax(-1)).float().mean().item()
+    spread = einsum.std().item()
+    ok = math.isfinite(err) and err <= STEP_LOGIT_TOL
+    print(
+        f"[profile cross-decode] one step's logits, K3 vs einsum: max_abs_err {err:.4f} "
+        f"(tol {STEP_LOGIT_TOL:g}; logit std {spread:.3f}); same argmax in {same:.0%} of rows; "
+        f"K3 launches {dims.n_text_layer} {'ok' if ok else 'FAIL'}"
+    )
+    if not ok:
+        raise AssertionError(f"K3 step logits: max_abs_err {err} > {STEP_LOGIT_TOL}")
+
+
+def phase_transcribe_many(pipe, k3: dict) -> None:
+    """``transcribe_many`` of three requests of synthetic speech (lengths
+    MANY_AUDIO_S, seeds 3-5, the second's language detected) through the
+    main path's large-v3 pipeline, with the cross-decode opt-in and the
+    ladder SHORT_LADDER. The counts are reset just before and read just
+    after: K3 once per decoder layer per sampled step (the prefills, with
+    t_new > 1, stay on the einsum), K1 32 × the encoder passes (the decodes
+    and the one batched language detection)."""
+    import torch
+
+    from whisperx_tpu_torch.ops.cross_attention_decode import cross_attention_decode
+    from whisperx_tpu_torch.ops.flash_attention import flash_attention
+    from whisperx_tpu_torch.utils.metrics import GLOBAL_TRACKER
+
+    audios = [synth_speech(s, seed=3 + i) for i, s in enumerate(MANY_AUDIO_S)]
+    saved = pipe.asr_options
+    pipe.asr_options = {**saved, "temperatures": SHORT_LADDER}
+    GLOBAL_TRACKER.reset()
+    try:
+        with cross_decode_opt_in():
+            cross_attention_decode.launches = 0
+            flash_attention.launches = 0
+            t0 = time.perf_counter()
+            results = pipe.transcribe_many(audios, batch_size=8, language=["en", None, "en"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            k3_launches, k1_launches = cross_attention_decode.launches, flash_attention.launches
+    finally:
+        pipe.asr_options = saved
+    report = GLOBAL_TRACKER.report()
+    counters = dict(GLOBAL_TRACKER.counters)
+    n_dec = report["decode"]["calls"]
+    steps = int(counters["decode_steps"])
+    dims = pipe.model.dims
+    assert len(results) == len(audios)
+    for r, (audio_s, res) in enumerate(zip(MANY_AUDIO_S, results)):
+        assert set(res) == {"segments", "language"}, res
+        for seg in res["segments"]:
+            assert 0.0 <= seg["start"] < seg["end"] <= audio_s + 1e-6, (r, seg)
+    assert k3_launches == dims.n_text_layer * steps > 0, (k3_launches, steps)
+    assert k1_launches == dims.n_audio_layer * (n_dec + 1), (k1_launches, n_dec)
+    k3["launches"] = k3_launches
+    total = sum(MANY_AUDIO_S)
+    print(
+        f"[many] transcribe_many of {len(audios)} requests ({'/'.join(f'{s:.0f}' for s in MANY_AUDIO_S)} s, "
+        f"languages {[r['language'] for r in results]}): {wall:.3f} s, RTF {total / wall:.2f}x; "
+        f"segments per request {[len(r['segments']) for r in results]}; {n_dec} decodes, "
+        f"{steps} sampled steps; batch fill {counters.get('batch_used', 0):.0f}/"
+        f"{counters.get('batch_slots', 0):.0f}; K3 launches {k3_launches} "
+        f"(= {dims.n_text_layer} x {steps}); K1 launches {k1_launches} "
+        f"(= {dims.n_audio_layer} x ({n_dec} decodes + 1 language detection))"
+    )
+
+
+def phase_sequential() -> None:
+    """``load_model("large-v3", vad_method="none")``: the seek loop over
+    SEQ_AUDIO_S of synthetic speech at full width, with the ladder
+    SHORT_LADDER. Each window's decode is counted (and its steps) through
+    ``decode_dispatch``; K1 must have launched 32 × the decodes, and K3
+    never (the seek loop keeps the cross-KV in bf16)."""
+    import torch
+
+    import whisperx_tpu_torch
+    from whisperx_tpu_torch.ops.cross_attention_decode import cross_attention_decode
+    from whisperx_tpu_torch.ops.flash_attention import flash_attention
+
+    # the module itself: the package's ``decoding.decode`` is the function
+    decode_module = importlib.import_module("whisperx_tpu_torch.decoding.decode")
+    pipe = whisperx_tpu_torch.load_model(
+        "large-v3", vad_method="none", compute_type="bfloat16",
+        asr_options={"temperatures": SHORT_LADDER},
+    )
+    assert pipe.vad_model is None
+    steps = []
+    real = decode_module.decode_dispatch
+
+    def counted(*a, **kw):
+        h = real(*a, **kw)
+        steps.append(h["steps"])
+        return h
+
+    decode_module.decode_dispatch = counted
+    audio = synth_speech(SEQ_AUDIO_S, seed=6)
+    try:
+        flash_attention.launches = 0
+        cross_attention_decode.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = pipe.transcribe(audio, language="en")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        decode_module.decode_dispatch = real
+    k1_launches = flash_attention.launches
+    assert k1_launches == pipe.model.dims.n_audio_layer * len(steps) > 0, (k1_launches, steps)
+    assert cross_attention_decode.launches == 0
+    # as in the JAX package (and OpenAI Whisper), the seek loop does not
+    # clamp the last window's timestamps to the audio: segments come in
+    # order, and lie inside a 30 s window that starts inside the audio
+    starts = [seg["start"] for seg in result["segments"]]
+    assert starts == sorted(starts), starts
+    for seg in result["segments"]:
+        assert 0.0 <= seg["start"] < seg["end"] <= SEQ_AUDIO_S + 30.0, seg
+    windows = -(-int(SEQ_AUDIO_S * 100) // 3000)
+    print(
+        f"[sequential] load_model(large-v3, vad_method=none): {SEQ_AUDIO_S:.0f} s in {wall:.3f} s, "
+        f"RTF {SEQ_AUDIO_S / wall:.2f}x; at least {windows} windows; {len(steps)} decodes "
+        f"(ladder {SHORT_LADDER}), steps {steps}; {len(result['segments'])} segments; "
+        f"K1 launches {k1_launches} (= {pipe.model.dims.n_audio_layer} x {len(steps)})"
+    )
+    del pipe
+    torch.cuda.empty_cache()
 
 
 def phase_cli(k4: dict):
@@ -540,13 +980,6 @@ def phase_cli(k4: dict):
         f"[cli] self-KV reorder per beam step: {gb:.3f} GB read and written "
         f"({2 * n_layer} x {list(shape)} bf16) in {reorder_ms:.3f} ms"
     )
-    # K3 (not ported yet) would read one layer's int8 cross K and V per
-    # step: 2·B·T·H·Dh bytes at batch 8 (the beams share the untiled K/V)
-    k3_bytes = 2 * 8 * 1500 * dims.n_text_state
-    print(
-        f"[cli] K3's bound at this decode step: {k3_bytes / 1e6:.2f} MB of int8 "
-        f"K/V per layer, {k3_bytes / PEAK_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s"
-    )
     del caches, pipe
     torch.cuda.empty_cache()
     return model
@@ -563,6 +996,7 @@ def phase_small_model() -> None:
     from whisperx_tpu_torch.convert.checkpoint import flatten_tree, params_from_numpy
     from whisperx_tpu_torch.decoding import DecodingOptions
     from whisperx_tpu_torch.decoding.decode import decode
+    from whisperx_tpu_torch.decoding.transcribe import transcribe as seq_transcribe
     from whisperx_tpu_torch.ops.quant_matmul import quant_matmul
     from whisperx_tpu_torch.quant import QuantizedLinear, quantize_model
 
@@ -595,6 +1029,21 @@ def phase_small_model() -> None:
         f"{len(chunks)} chunks with identical greedy tokens "
         f"({sum(len(t) for t in toks['cuda'])} tokens) on cuda and cpu"
     )
+    # the seek loop over the whole file (no VAD), greedy
+    keys = ("id", "seek", "start", "end", "text", "tokens", "temperature")
+    seq = {
+        dev: [
+            {k: seg[k] for k in keys}
+            for seg in seq_transcribe(p.model, audio, language="en", temperature=0.0)["segments"]
+        ]
+        for dev, p in pipes.items()
+    }
+    assert seq["cpu"] == seq["cuda"] and seq["cuda"], seq
+    print(
+        f"[small] test-nano f32 seek loop: {len(seq['cuda'])} identical segments "
+        f"({sum(len(s['tokens']) for s in seq['cuda'])} tokens, windows at seeks "
+        f"{sorted({s['seek'] for s in seq['cuda']})}) on cuda and cpu"
+    )
 
     # int8: every decoder linear at depth 2 quantized on the CPU, the same
     # codes bridged to cuda, where they run K4's f32 kernel
@@ -626,22 +1075,46 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
+    os.environ.pop(CROSS_DECODE_FLAG, None)  # off (the default) but where asked
     t_start = time.perf_counter()
     name = phase_card()
     phase_build()
-    k1 = phase_kernels()
+    k1, k1b, k2 = phase_kernels()
     k4 = phase_k4()
-    model = phase_main_path(k1)
-    phase_decode_profile(model)
-    del model
+    k3, k3kt, k3i8 = phase_k3()
+    # the kernels with no caller in the package, counted over every path
+    # below: each must stay at 0 (a path that reached one would show here)
+    from whisperx_tpu_torch.ops.cross_attention_decode import cross_decode_i8, cross_decode_kt
+    from whisperx_tpu_torch.ops.flash_attention import flash_attention_tiled, wholek_attention
+
+    unused = {
+        "K1b": (k1b, wholek_attention, "mxu_sum_launches"),
+        "K2": (k2, flash_attention_tiled, "launches"),
+        "K3kt": (k3kt, cross_decode_kt, "launches"),
+        "K3i8": (k3i8, cross_decode_i8, "launches"),
+    }
+    for _, fn, attr in unused.values():
+        setattr(fn, attr, 0)
+    pipe = phase_main_path(k1)
+    phase_decode_profile(pipe.model)
+    phase_cross_decode_step(pipe.model)
+    with cross_decode_opt_in():
+        phase_decode_profile(pipe.model, "profile cross-decode", k3=k3)
+    phase_transcribe_many(pipe, k3)
+    del pipe
     torch.cuda.empty_cache()
+    phase_sequential()
     model = phase_cli(k4)
     phase_decode_profile(model, "profile int8", beam_size=5)
     del model
     torch.cuda.empty_cache()
     phase_small_model()
+    for label, (entry, fn, attr) in unused.items():
+        entry["launches"] = getattr(fn, attr)
+        print(f"[paths] {label} launches over every path: {entry['launches']}")
+        assert entry["launches"] == 0, (label, entry["launches"])
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [k1, k4]}))
+    print(json.dumps({"kernels": [k1, k1b, k2, k3, k3kt, k3i8, k4]}))
     print(json.dumps({
         "ok": True,
         "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()},

@@ -1,7 +1,8 @@
 """The port's CLI against the JAX package's on the CPU: the same flags,
 choices and defaults (but ``--device`` and ``--version``); byte-identical
-transcripts from the same f32 checkpoint, with the default beam search; the
-int8 path; and every flag of a stage not ported yet raises
+transcripts from the same f32 checkpoint, with the default beam search, the
+int8 path, and the sequential modes (``--vad_method none``, ``--backend
+sequential``); and every flag of a stage not ported yet raises
 ``NotImplementedError`` naming its ROADMAP.md item, before anything loads."""
 
 import dataclasses
@@ -146,14 +147,39 @@ def test_cli_int8_writes_the_same_files_as_jax(workdir):
 
 
 @pytest.mark.parametrize(
+    "mode", [("--vad_method", "none"), ("--backend", "sequential")], ids=" ".join
+)
+def test_cli_sequential_modes_write_the_same_files_as_jax(workdir, mode):
+    """The seek loop over the whole file (no VAD) or over each VAD chunk,
+    f32, beam 5, at one temperature (the two packages sample from different
+    generators above 0): every written file is byte-identical to the JAX
+    CLI's."""
+    out = mode[1]
+    argv = _argv(workdir, f"jax_{out}", "float32", *mode, "--condition_on_previous_text", "False")
+    _run("jax", argv)
+    argv[argv.index("-o") + 1] = str(workdir / f"torch_{out}")
+    pipe = _run("torch", argv)
+    assert pipe.asr_options["temperatures"] == (0.0,) and pipe.asr_options["beam_size"] == 5
+    assert (pipe.vad_model is None) == (out == "none")
+    assert pipe.decode_mode == ("sequential" if out == "sequential" else "batched")
+    want, got = _outputs(workdir / f"jax_{out}"), _outputs(workdir / f"torch_{out}")
+    for f in OUTPUTS:
+        assert got[f] == want[f], f
+
+
+@pytest.mark.parametrize(
     "extra",
     [
         ("--diarize",),
         ("--word_timestamps", "True"),
         ("--hallucination_silence_threshold", "2"),
         ("--draft_model", "tiny"),
-        ("--backend", "sequential"),
-        ("--vad_method", "none"),
+        # the sequential modes run (test_cli_sequential_modes_write_the_same_
+        # files_as_jax); with a stage that is not ported they still refuse
+        pytest.param(("--backend", "sequential", "--diarize"), id="--backend sequential"),
+        pytest.param(
+            ("--vad_method", "none", "--word_timestamps", "True"), id="--vad_method none"
+        ),
         ("--vad_method", "pyannote"),
         ("--vad_method", "hybrid"),
         ("--data_parallel", "on"),

@@ -1,0 +1,250 @@
+"""K3, K3kt and K3i8's plain PyTorch versions (the port's CPU path) against
+the JAX package's Pallas functions run in interpret mode, and the decoder's
+cross-decode opt-in (``WHISPERX_TPU_CROSS_DECODE``) against JAX's on f32
+``test-nano``. The CUDA kernel is held against these plain versions on the
+card by ``chip_smoke.py``."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from whisperx_tpu.convert.checkpoint import flatten_tree
+from whisperx_tpu.decoding import DecodingOptions as JOptions
+from whisperx_tpu.decoding import decode as jax_decode
+from whisperx_tpu.models.whisper import Whisper as JWhisper
+from whisperx_tpu.models.whisper import model as jm
+from whisperx_tpu.models.whisper.config import MODEL_DIMS
+from whisperx_tpu.ops import cross_attention_decode as jx
+from whisperx_tpu_torch.convert.checkpoint import params_from_numpy
+from whisperx_tpu_torch.decoding import DecodingOptions, decode
+from whisperx_tpu_torch.models.whisper import model as tm
+from whisperx_tpu_torch.ops import cross_attention_decode as tx
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
+
+DIMS = MODEL_DIMS["test-nano"]
+# The plain versions repeat the Pallas recurrence tile by tile; the two
+# differ only in the order of f32 sums. |V| ≤ 127, so outputs are O(100):
+# 1e-3 absolute is ~1e-5 relative. A bf16 rounding of P that flips under a
+# different f32 sum order moves an output by up to ~0.5 (2⁻⁸ · 127): a flip
+# would fail this tolerance, and none occurs on these seeds.
+TOL = dict(atol=1e-3, rtol=1e-5)
+
+
+def _inputs(b, t, h, dh, seed):
+    """Spread bf16 queries [B, H, D] (rows of N(0, 0.05²), so scores are
+    O(1-10)), int8 k/v [B, T, D], and the per-head int8 queries with their
+    scales, made as ``tools/probe_kv_layout.py`` makes them."""
+    rng = np.random.default_rng(seed)
+    d = h * dh
+    q = (0.05 * rng.standard_normal((b, d))).astype(np.float32)
+    q = np.asarray(jnp.asarray(q, jnp.bfloat16).astype(jnp.float32))
+    sel = (np.arange(d)[None, :] // dh) == np.arange(h)[:, None]  # [H, D]
+    qs = q[:, None, :] * sel[None]
+    k8 = rng.integers(-127, 128, (b, t, d)).astype(np.int8)
+    v8 = rng.integers(-127, 128, (b, t, d)).astype(np.int8)
+    amax = np.abs(qs).max(axis=-1, keepdims=True)
+    sq = np.maximum(amax / 127.0, 1e-10).astype(np.float32)  # [B, H, 1]
+    qs8 = np.clip(np.round(qs / sq), -127, 127).astype(np.int8)
+    return qs, k8, v8, qs8, sq
+
+
+CASES = [  # (t, h, dh): one tile, a tile that overhangs, three tiles
+    (256, 4, 64), (300, 4, 64), (1500, 4, 64), (300, 4, 32), (1500, 2, 32),
+]
+
+
+@pytest.mark.parametrize("t,h,dh", CASES)
+def test_k3_plain_matches_pallas(t, h, dh):
+    qs, k8, v8, _, _ = _inputs(2, t, h, dh, seed=t + h + dh)
+    want = np.asarray(
+        jx._cross_decode_pallas(
+            jnp.asarray(qs, jnp.bfloat16), jnp.asarray(k8), jnp.asarray(v8), interpret=True
+        )
+    )
+    got = tx.cross_decode(
+        torch.from_numpy(qs).to(torch.bfloat16), torch.from_numpy(k8), torch.from_numpy(v8)
+    )
+    assert got.shape == want.shape == (2, 1, h * dh) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("t,h,dh", CASES)
+def test_k3kt_plain_matches_pallas(t, h, dh):
+    qs, k8, v8, _, _ = _inputs(2, t, h, dh, seed=t + h + dh + 1)
+    kt8 = np.ascontiguousarray(k8.transpose(0, 2, 1))
+    want = np.asarray(
+        jx._cross_decode_pallas_kt(
+            jnp.asarray(qs, jnp.bfloat16), jnp.asarray(kt8), jnp.asarray(v8), interpret=True
+        )
+    )
+    got = tx.cross_decode_kt(
+        torch.from_numpy(qs).to(torch.bfloat16), torch.from_numpy(kt8), torch.from_numpy(v8)
+    )
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("t,h,dh", CASES)
+def test_k3i8_plain_matches_pallas(t, h, dh):
+    _, k8, v8, qs8, sq = _inputs(2, t, h, dh, seed=t + h + dh + 2)
+    want = np.asarray(
+        jx._cross_decode_pallas_i8(
+            jnp.asarray(qs8), jnp.asarray(sq), jnp.asarray(k8), jnp.asarray(v8),
+            interpret=True,
+        )
+    )
+    got = tx.cross_decode_i8(*map(torch.from_numpy, (qs8, sq, k8, v8)))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def test_k3i8_scores_are_exact_integers():
+    """The int8 × int8 scores of the plain version are the exact integer
+    dot (here the TPU's int32 sum), so K3i8 differs from K3 run on the
+    dequantized queries only through the query's quantization."""
+    _, k8, v8, qs8, sq = _inputs(1, 300, 4, 64, seed=9)
+    exact = np.einsum("bhd,btd->bht", qs8.astype(np.int64), k8.astype(np.int64))
+    got = torch.matmul(
+        torch.from_numpy(qs8).double(), torch.from_numpy(k8).double().transpose(1, 2)
+    )
+    np.testing.assert_array_equal(got.numpy().astype(np.int64), exact)
+    assert np.abs(exact).max() < 2**24  # exact in f32 too, as on the TPU
+
+
+@pytest.mark.parametrize("t", [300, 1500])
+def test_op_matches_jax_op(t):
+    """The decoder's op, ``cross_attention_decode(q_eff, k8, v8)`` in the
+    [B, 1, H, Dh] layout, against the JAX package's (interpret mode)."""
+    rng = np.random.default_rng(t)
+    b, h, dh = 2, 4, 64
+    q = (0.05 * rng.standard_normal((b, 1, h, dh))).astype(np.float32)
+    k8 = rng.integers(-127, 128, (b, t, h, dh)).astype(np.int8)
+    v8 = rng.integers(-127, 128, (b, t, h, dh)).astype(np.int8)
+    want = np.asarray(
+        jx.cross_attention_decode(jnp.asarray(q), jnp.asarray(k8), jnp.asarray(v8), interpret=True)
+    )
+    got = tx.cross_attention_decode(*map(torch.from_numpy, (q, k8, v8)))
+    assert got.shape == (b, 1, h, dh)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize(
+    "flag,device,want", [("1", "cuda", True), ("1", "cpu", False), ("force", "cpu", True),
+                         ("0", "cuda", False), ("yes", "cuda", False), (None, "cuda", False)],
+)
+def test_opt_in_keeps_the_jax_meaning(monkeypatch, flag, device, want):
+    if flag is None:
+        monkeypatch.delenv("WHISPERX_TPU_CROSS_DECODE", raising=False)
+    else:
+        monkeypatch.setenv("WHISPERX_TPU_CROSS_DECODE", flag)
+    assert tx.use_cross_decode_kernel(torch.device(device)) is want
+
+
+def test_cpu_tensors_take_the_plain_version_without_launching():
+    qs, k8, v8, _, _ = _inputs(1, 64, 2, 32, seed=1)
+    before = tx.cross_attention_decode.launches
+    tx.cross_decode(torch.from_numpy(qs).to(torch.bfloat16), torch.from_numpy(k8), torch.from_numpy(v8))
+    assert tx.cross_attention_decode.launches == before
+
+
+def test_kernel_operand_checks_reject_cpu_tensors():
+    qs, k8, v8, _, _ = _inputs(1, 64, 2, 32, seed=1)
+    with pytest.raises(ValueError, match="CUDA"):
+        tx._check_operands(
+            torch.from_numpy(qs).to(torch.bfloat16), torch.from_numpy(k8), torch.from_numpy(v8),
+            n_head=2, k_transposed=False, q_int8=False, bt=tx.TILE,
+        )
+
+
+@pytest.fixture(scope="module")
+def nano():
+    params = jm.init_params(DIMS, jax.random.PRNGKey(0), dtype=jnp.float32)
+    return params, params_from_numpy(flatten_tree(params), DIMS, torch.float32, "cpu")
+
+
+def _step_logits_torch(model, feats, flag, monkeypatch):
+    monkeypatch.setenv("WHISPERX_TPU_CROSS_DECODE", flag)
+    n_head = DIMS.n_text_head
+    ck, cv = tm.precompute_cross_kv(model.decoder, torch.from_numpy(feats), n_head)
+    shape = (2, 64, n_head, DIMS.n_text_state // n_head)
+    cache = tm.KVCache(
+        [torch.zeros(shape) for _ in range(DIMS.n_text_layer)],
+        [torch.zeros(shape) for _ in range(DIMS.n_text_layer)],
+        [tm.quantize_kv(x) for x in ck], [tm.quantize_kv(x) for x in cv],
+    )
+    tokens = torch.tensor([[11], [42]])
+    return tm.decoder_forward(model.decoder, tokens, cache, 0, n_head).numpy()
+
+
+def test_decoder_forward_force_matches_jax_force(nano, monkeypatch):
+    """One t_new = 1 decoder pass over an int8 cache, f32 test-nano: the
+    port's forced route (K3's plain version) against JAX's forced route
+    (the Pallas kernel in interpret mode) and against the port's einsum."""
+    params, model = nano
+    feats = np.random.default_rng(0).standard_normal(
+        (2, DIMS.n_audio_ctx, DIMS.n_audio_state)
+    ).astype(np.float32)
+    monkeypatch.setenv("WHISPERX_TPU_CROSS_DECODE", "force")
+    n_head = DIMS.n_text_head
+    ck, cv = jm.precompute_cross_kv(params, jnp.asarray(feats), n_head)
+    sk, sv = jm.init_kv_cache(DIMS, 2, jnp.float32)
+    cache = jm.KVCache(sk, sv, tuple(map(jm.quantize_kv, ck)), tuple(map(jm.quantize_kv, cv)))
+    want, _, _ = jm.decoder_forward(
+        params, jnp.asarray([[11], [42]], jnp.int32), cache, jnp.int32(0), n_head
+    )
+    want = np.asarray(want)
+
+    calls = []
+    real = tm.cross_attention_decode
+    monkeypatch.setattr(tm, "cross_attention_decode", lambda *a: calls.append(1) or real(*a))
+    forced = _step_logits_torch(model, feats, "force", monkeypatch)
+    assert len(calls) == DIMS.n_text_layer  # every layer took K3's route
+    # the same arithmetic (q rounded to bf16, P to bf16) in both packages
+    np.testing.assert_allclose(forced, want, atol=1e-4, rtol=0)
+    calls.clear()
+    einsum = _step_logits_torch(model, feats, "0", monkeypatch)
+    assert not calls
+    # the kernel route rounds q and P to bf16, the f32 einsum does not: the
+    # tolerance of tests/test_cross_decode.py for the same comparison
+    np.testing.assert_allclose(forced, einsum, atol=2e-2, rtol=2e-2)
+    assert np.array_equal(forced.argmax(-1), einsum.argmax(-1))
+
+
+def test_prefill_and_beams_stay_on_the_einsum(nano, monkeypatch):
+    """The route needs t_new == 1 and no beam folding, as in JAX."""
+    _, model = nano
+    monkeypatch.setenv("WHISPERX_TPU_CROSS_DECODE", "force")
+    calls = []
+    real = tm.cross_attention_decode
+    monkeypatch.setattr(tm, "cross_attention_decode", lambda *a: calls.append(1) or real(*a))
+    mel = torch.from_numpy(np.random.default_rng(3).standard_normal((1, 3000, DIMS.n_mels)).astype(np.float32))
+    decode(model, mel, DecodingOptions(language="en", kv_quant=True, beam_size=2, sample_len=3))
+    assert not calls
+    decode(model, mel, DecodingOptions(language="en", kv_quant=True, sample_len=3))
+    # the prefill (t_new > 1) stays on the einsum; each of the 3 sampled
+    # steps feeds its token back through one t_new = 1 pass of every layer
+    assert len(calls) == DIMS.n_text_layer * 3
+
+
+def test_greedy_tokens_with_k3_identical_to_jax(nano, monkeypatch):
+    """Greedy decode with the int8 cross-KV cache and the opt-in forced in
+    both packages (K3's plain version here, the Pallas kernel in interpret
+    mode there): the same tokens, the same no-speech probability."""
+    params, model = nano
+    monkeypatch.setenv("WHISPERX_TPU_CROSS_DECODE", "force")
+    from conftest import synth_speech
+    from whisperx_tpu.audio.mel import log_mel_batch as jax_log_mel_batch
+
+    audio = np.stack([synth_speech(30.0, seed=s) for s in (0, 1)])
+    mels = np.asarray(jax_log_mel_batch(audio, DIMS.n_mels))
+    jmodel = JWhisper(DIMS, params, dtype=jnp.float32, name="test-nano")
+    want = jax_decode(
+        jmodel, jnp.asarray(mels), JOptions(language="en", kv_quant=True, sample_len=24)
+    )
+    got = decode(
+        model, torch.from_numpy(mels), DecodingOptions(language="en", kv_quant=True, sample_len=24)
+    )
+    assert [r.tokens for r in got] == [r.tokens for r in want]
+    np.testing.assert_allclose(
+        [r.no_speech_prob for r in got], [r.no_speech_prob for r in want], atol=1e-5
+    )

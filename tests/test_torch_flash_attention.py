@@ -1,7 +1,8 @@
-"""K1's plain PyTorch version (the port's CPU path) against the JAX package:
-the Pallas ``_flash_attention_wholek`` run in interpret mode, and the XLA
-oracle ``_xla_attention``. The CUDA kernel itself is held against this plain
-version on the card by ``chip_smoke.py``."""
+"""K1's, K1b's and K2's plain PyTorch versions (the port's CPU path) against
+the JAX package: the Pallas ``_flash_attention_wholek`` and
+``_flash_attention_pallas`` run in interpret mode, and the XLA oracle
+``_xla_attention``. The CUDA kernel itself is held against these plain
+versions on the card by ``chip_smoke.py``."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -9,6 +10,7 @@ import pytest
 import torch
 
 from whisperx_tpu.ops.flash_attention import (
+    _flash_attention_pallas,
     _flash_attention_wholek,
     _xla_attention,
     flash_attention as jax_flash_attention,
@@ -17,6 +19,7 @@ from whisperx_tpu_torch.ops.flash_attention import (
     _attention_reference,
     _check_operands,
     flash_attention,
+    flash_attention_tiled,
     wholek_attention,
 )
 from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
@@ -108,3 +111,142 @@ def test_kernel_operand_checks_reject_cpu_tensors():
     q, k, v = _torch(*_qkv(1, 8, 8, 64, seed=4))
     with pytest.raises(ValueError, match="CUDA"):
         _check_operands(q, k, v)
+
+
+# ---------------------------------------------------------------------------
+# K2 (``_flash_kernel``) and K1b (``_wholek_mxusum_kernel``)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize(
+    "tk,bk,causal,dtype",
+    [
+        (384, 128, False, torch.float32),
+        (384, 128, True, torch.float32),
+        (384, 128, True, torch.bfloat16),
+        (3072, 1536, False, torch.float32),  # past the whole-K kernel's 2048
+        (3072, 1536, True, torch.bfloat16),
+    ],
+)
+def test_k2_plain_matches_pallas(tk, bk, causal, dtype):
+    """The tile recurrence at Tq = Tk, where the Pallas kernel's causal mask
+    (aligned at the start) and the port's (aligned at the end) agree. f32:
+    TOL; bf16: the same arithmetic and roundings in both, so the outputs
+    agree to one bf16 ulp at their magnitude (|out| < 1 here). Tk is a
+    multiple of ``bk``: the Pallas kernel does not mask a key tile that
+    overhangs Tk (interpret mode reads NaN there), the port's does
+    (``test_k2_masks_an_overhanging_key_tile``)."""
+    q, k, v = _qkv(2, tk, tk, 64, seed=tk + causal)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    want = np.asarray(
+        _flash_attention_pallas(
+            jnp.asarray(q, jdt), jnp.asarray(k, jdt), jnp.asarray(v, jdt),
+            causal=causal, bq=256, bk=bk, interpret=True,
+        ).astype(jnp.float32)
+    )
+    got = flash_attention_tiled(*_torch(q, k, v, dtype=dtype), causal=causal, bk=bk)
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = TOL if dtype == torch.float32 else dict(atol=4e-3, rtol=0)
+    np.testing.assert_allclose(got.float().numpy(), want, **tol)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_k2_masks_an_overhanging_key_tile(causal):
+    """Tk = 300 in key tiles of 128: the last tile overhangs by 84 keys,
+    which the port masks; equal to the XLA route."""
+    q, k, v = _qkv(2, 300, 300, 64, seed=6)
+    want = np.asarray(
+        _xla_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal)
+    )
+    got = flash_attention_tiled(*_torch(q, k, v), causal=causal, bk=128)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_k2_plain_matches_xla_when_fewer_queries(causal):
+    """Tq < Tk: the port's K2 equals the JAX package's XLA route, whose
+    causal mask is aligned at the end of the keys (``tril(k=Tk-Tq)``)."""
+    q, k, v = _qkv(2, 100, 300, 64, seed=7)
+    want = np.asarray(
+        _xla_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal)
+    )
+    got = flash_attention_tiled(*_torch(q, k, v), causal=causal, bk=128)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def test_k2_causal_divergence_of_the_reference_is_named():
+    """A fault of the reference, named: with Tq < Tk the JAX package's
+    Pallas K2 aligns the causal mask at the start (key ≤ query) while its
+    XLA route aligns it at the end, so ``flash_attention(causal=True)``
+    answers differently on a TPU and on a CPU. The port implements the end
+    alignment (the XLA route's and the decoder's own mask): it agrees with
+    the XLA route and differs from the Pallas kernel by O(1)."""
+    q, k, v = _qkv(4, 100, 300, 64, seed=8)
+    args = [jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)]
+    pallas = np.asarray(  # one key tile of 300: nothing overhangs
+        _flash_attention_pallas(*args, causal=True, bk=300, interpret=True).astype(jnp.float32)
+    )
+    xla = np.asarray(_xla_attention(*args, causal=True).astype(jnp.float32))
+    port = flash_attention_tiled(*_torch(q, k, v, dtype=torch.bfloat16), causal=True).float().numpy()
+    assert np.abs(pallas - xla).max() > 0.5
+    assert np.abs(port - pallas).max() > 0.5
+    np.testing.assert_allclose(port, xla, atol=1e-2, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1b_plain_matches_pallas_mxu_sum(dtype):
+    """K1b: the denominator sums the weights after their rounding. In f32
+    that is K1 exactly; in bf16 it is not (v scaled by 8, |out| ≈ 4: the two
+    Pallas kernels differ by 0.0156), and the plain version follows the
+    Pallas K1b within one bf16 ulp of the output, closer than K1 is."""
+    q, k, v = _qkv(4, 300, 300, 64, seed=12)
+    v = 8 * v
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    jq, jk, jv = (jnp.asarray(x, jdt) for x in (q, k, v))
+    want = np.asarray(
+        _flash_attention_wholek(jq, jk, jv, bq=128, mxu_sum=True, interpret=True).astype(jnp.float32)
+    )
+    k1 = np.asarray(_flash_attention_wholek(jq, jk, jv, bq=128, interpret=True).astype(jnp.float32))
+    tq, tk, tv = _torch(q, k, v, dtype=dtype)
+    got = wholek_attention(tq, tk, tv, mxu_sum=True).float().numpy()
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got, want, **TOL)
+        np.testing.assert_allclose(got, k1, **TOL)
+    else:
+        np.testing.assert_allclose(got, want, atol=2.0**-7 * np.abs(want).max(), rtol=0)
+        assert np.abs(got - want).max() < np.abs(want - k1).max()
+
+
+@pytest.mark.parametrize(
+    "causal,tk,route", [(False, 2048, "K1"), (False, 2049, "K2"), (True, 64, "K2")]
+)
+def test_dispatch_follows_jax(monkeypatch, causal, tk, route):
+    """``flash_attention`` routes as the JAX package does on its device:
+    non-causal over at most 2048 keys to K1, else K2 (key tiles of 1536).
+    Either kernel gets contiguous [BH, T, D] operands, which the CUDA
+    kernels require, also at batch 1, where the head split is a view."""
+    from whisperx_tpu_torch.ops import flash_attention as fa
+
+    taken, contiguous = [], []
+    monkeypatch.setattr(
+        fa, "wholek_attention",
+        lambda *a, **kw: contiguous.append(all(x.is_contiguous() for x in a))
+        or taken.append("K1") or a[0],
+    )
+    monkeypatch.setattr(
+        fa, "flash_attention_tiled",
+        lambda *a, **kw: contiguous.append(all(x.is_contiguous() for x in a))
+        or taken.append(("K2", kw["bk"], kw["causal"])) or a[0],
+    )
+    x = torch.zeros((1, tk, 2, 32))
+    fa.flash_attention(x, x, x, causal=causal)
+    assert taken == (["K1"] if route == "K1" else [("K2", 1536, causal)])
+    assert contiguous == [True]
+
+
+def test_k1b_and_k2_cpu_tensors_launch_nothing():
+    q, k, v = _torch(*_qkv(2, 64, 64, 64, seed=3))
+    before = (wholek_attention.mxu_sum_launches, flash_attention_tiled.launches)
+    wholek_attention(q, k, v, mxu_sum=True)
+    flash_attention_tiled(q, k, v, causal=True)
+    assert (wholek_attention.mxu_sum_launches, flash_attention_tiled.launches) == before

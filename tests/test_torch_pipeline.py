@@ -81,15 +81,20 @@ def test_fallback_temperatures_rerun_failing_chunks(nano_ckpt, speech35):
 
 
 def test_port_runs_without_jax(nano_ckpt):
-    """A fresh interpreter imports the port (its CLI, orchestrator and
-    quantization too) and transcribes; neither jax nor any module of the JAX
-    package is loaded."""
+    """A fresh interpreter imports the port (its CLI, orchestrator, backends,
+    seek loop, kernels' modules and quantization too) and transcribes, with
+    a VAD and without; neither jax nor any module of the JAX package is
+    loaded."""
     code = textwrap.dedent(
         f"""
         import sys
         import numpy as np
         import whisperx_tpu_torch
         import whisperx_tpu_torch.__main__
+        import whisperx_tpu_torch.backends
+        import whisperx_tpu_torch.decoding.transcribe
+        import whisperx_tpu_torch.ops.cross_attention_decode
+        import whisperx_tpu_torch.ops.flash_attention
         import whisperx_tpu_torch.quant
         import whisperx_tpu_torch.transcribe
         t = np.arange(16000 * 12) / 16000
@@ -99,6 +104,11 @@ def test_port_runs_without_jax(nano_ckpt):
         )
         out = pipe.transcribe(audio, language="en", temperatures=(0.0,), sample_len=16)
         assert out["language"] == "en" and out["segments"], out
+        seq = whisperx_tpu_torch.load_model(
+            {nano_ckpt!r}, device="cpu", compute_type="float32", vad_method="none"
+        )
+        out = seq.transcribe(audio, language="en", temperatures=(0.0,), sample_len=16)
+        assert out["language"] == "en", out
         bad = sorted(
             m for m in sys.modules
             if m == "jax" or m.startswith("jax.") or m == "jaxlib"
@@ -155,10 +165,12 @@ def test_cuda_without_a_gpu_raises(monkeypatch):
 @pytest.mark.parametrize(
     "kwargs",
     [
-        dict(backend="standard"),
-        dict(vad_method="none"),
-        dict(backend="sequential"),
-        dict(vad_method=None),
+        # the sequential modes run (tests/test_torch_sequential.py); what
+        # they cannot run yet still raises
+        dict(backend="standard", asr_options={"word_timestamps": True}),
+        dict(vad_method="none", asr_options={"draft_model": "self:1"}),
+        dict(backend="sequential", vad_method="pyannote"),
+        dict(vad_method=None, asr_options={"word_timestamps": True}),
         dict(vad_method="pyannote"),
         dict(vad_method="hybrid"),
         dict(asr_options={"draft_model": "self:1"}),
@@ -188,11 +200,17 @@ def test_unported_call_options_raise(option):
 
 
 def test_sequential_decode_mode_raises():
+    """The sequential mode runs now; word timing, which it would need for
+    ``word_timestamps``, is not ported yet and raises."""
     from whisperx_tpu_torch.asr import TranscriptionPipeline
     from whisperx_tpu_torch.vad import EnergyVAD
 
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TranscriptionPipeline(model=None, vad_model=EnergyVAD(), decode_mode="sequential")
+        TranscriptionPipeline(
+            model=None, vad_model=EnergyVAD(), decode_mode="sequential",
+            asr_options={"word_timestamps": True},
+        )
+    assert TranscriptionPipeline(model=None, decode_mode="sequential").vad_model is None
 
 
 def test_silero_without_checkpoint_falls_back_to_energy(monkeypatch):

@@ -1,6 +1,6 @@
 """ASR pipeline: VAD segmentation + truly batched Whisper decode.
 
-Counterpart of ``whisperx_tpu/asr.py`` (batched mode):
+Counterpart of ``whisperx_tpu/asr.py``. The batched mode:
 
   1. the waveform is uploaded once; the VAD reads the resident tensor;
   2. merged VAD chunks are cut and turned into log-mels on the device;
@@ -10,12 +10,20 @@ Counterpart of ``whisperx_tpu/asr.py`` (batched mode):
      compression-ratio / log-prob gates;
   5. each chunk's tokens are split into timestamped segments.
 
+``transcribe_many`` pools the chunks of many requests into the same device
+batches. Without a VAD, or with ``decode_mode="sequential"`` (the
+``backend="sequential"`` of ``load_model``), the sequential seek loop of
+``decoding/transcribe.py`` decodes the whole file, or each VAD chunk, one
+30 s window at a time.
+
 Options this slice does not run raise ``NotImplementedError`` naming the
 ROADMAP.md item that brings them; none is silently ignored.
 """
 
 from __future__ import annotations
 
+import bisect
+import math
 import time
 import warnings
 from dataclasses import dataclass, field
@@ -37,6 +45,7 @@ from whisperx_tpu_torch.decoding import DecodingOptions, get_tokenizer
 from whisperx_tpu_torch.decoding.decode import decode_dispatch, decode_finalize
 from whisperx_tpu_torch.decoding.decode import detect_language as _detect_language
 from whisperx_tpu_torch.decoding.transcribe import split_timestamp_segments
+from whisperx_tpu_torch.decoding.transcribe import transcribe as seq_transcribe
 from whisperx_tpu_torch.types import TranscriptionResult
 from whisperx_tpu_torch.utils.languages import normalize_language
 from whisperx_tpu_torch.utils.metrics import GLOBAL_TRACKER as _tracker
@@ -80,9 +89,6 @@ _LATER = {
     "draft_model": (None, "speculative decoding: ROADMAP.md, Queue 1, item 8"),
     "word_timestamps": (False, "word timing: ROADMAP.md, Queue 1, item 9"),
 }
-
-
-_SEQUENTIAL = "the sequential seek loop (ROADMAP.md, Queue 1, item 8)"
 
 
 def _check_supported(options: dict) -> None:
@@ -130,19 +136,15 @@ class TranscriptionPipeline:
     """VAD → batched ASR pipeline (role of reference MLXWhisperPipeline)."""
 
     model: object
-    vad_model: object
+    vad_model: Optional[object] = None  # None: the seek loop over the file
     asr_options: dict = field(default_factory=dict)
     language: Optional[str] = None
     task: str = "transcribe"
     batch_size: int = 8
-    decode_mode: str = "batched"  # "sequential" is not ported yet
+    decode_mode: str = "batched"  # "batched" | "sequential"
     seed: int = 0  # seeds the sampling generator of each decode at T > 0
 
     def __post_init__(self):
-        if self.vad_model is None:
-            raise NotImplementedError(f"transcription without VAD is {_SEQUENTIAL}")
-        if self.decode_mode != "batched":
-            raise NotImplementedError(f"decode_mode={self.decode_mode!r} is {_SEQUENTIAL}")
         self.asr_options = {**DEFAULT_ASR_OPTIONS, **(self.asr_options or {})}
         _check_supported(self.asr_options)
 
@@ -203,6 +205,24 @@ class TranscriptionPipeline:
         language = normalize_language(language or self.language)
         task = task or self.task
 
+        if self.vad_model is None:
+            # no VAD: the sequential seek loop over the whole file
+            result = seq_transcribe(
+                self.model,
+                audio,
+                language=language,
+                task=task,
+                verbose=verbose if verbose else None,
+                seed=self.seed,
+                **self._seq_options(o=options, initial_prompt=initial_prompt),
+            )
+            return {
+                "segments": [
+                    {k: s[k] for k in ("start", "end", "text")} for s in result["segments"]
+                ],
+                "language": result["language"],
+            }
+
         with _tracker.track("upload", len(audio) / SAMPLE_RATE):
             audio_dev = upload_audio(audio, self.device)
             _sync(self.device)
@@ -221,18 +241,207 @@ class TranscriptionPipeline:
             else:
                 language = "en"
 
-        segments = self._transcribe_chunks(
-            audio_dev,
-            chunks,
-            options,
-            batch_size=batch_size,
-            language=language,
-            task=task,
-            print_progress=print_progress,
-            verbose=verbose,
-            initial_prompt=initial_prompt,
-        )
+        if self.decode_mode == "sequential":
+            segments = self._transcribe_chunks_sequential(
+                audio, chunks, options, language=language, task=task,
+                verbose=verbose, initial_prompt=initial_prompt,
+            )
+        else:
+            segments = self._transcribe_chunks(
+                audio_dev,
+                chunks,
+                options,
+                batch_size=batch_size,
+                language=language,
+                task=task,
+                print_progress=print_progress,
+                verbose=verbose,
+                initial_prompt=initial_prompt,
+            )
         return {"segments": segments, "language": language}
+
+    def transcribe_many(
+        self,
+        audios: List[np.ndarray],
+        *,
+        batch_size: Optional[int] = None,
+        chunk_size: float = 30,
+        language: Optional[Union[str, List[Optional[str]]]] = None,
+        task: Optional[Union[str, List[Optional[str]]]] = None,
+        initial_prompt: Optional[Union[str, List[Optional[str]]]] = None,
+    ) -> List[TranscriptionResult]:
+        """Cross-request coalescing: VAD every audio, pool all requests'
+        chunks into one shared decode stream (chunks of different requests
+        fill the same device batch), then demultiplex the segments back per
+        request.
+
+        ``language`` / ``task`` / ``initial_prompt`` are one value for all
+        requests or a per-request list (``None`` entries detect / default).
+        Requests are grouped by (language, task, prompt), each group sharing
+        device batches (the prompt is part of the decode prefix, so it is
+        uniform within a batch). The languages to detect are detected in one
+        batched call. Without a VAD each audio goes through ``transcribe``
+        (the seek loop is stateful per audio: nothing to pool)."""
+        n_req = len(audios)
+
+        def _per_request(opt, default):
+            if isinstance(opt, (list, tuple)):
+                if len(opt) != n_req:
+                    raise ValueError(
+                        f"per-request option length {len(opt)} != {n_req} requests"
+                    )
+                return [v if v is not None else default for v in opt]
+            return [opt if opt is not None else default] * n_req
+
+        batch_size = batch_size or self.batch_size
+        req_tasks = _per_request(task, self.task)
+        req_prompts = [  # tuples: prompts key the decode groups
+            tuple(p) if isinstance(p, list) else p
+            for p in _per_request(initial_prompt, None)
+        ]
+        req_langs = [normalize_language(lg) for lg in _per_request(language, self.language)]
+        audios = [np.asarray(a, np.float32) for a in audios]
+        if not audios:
+            return []
+        if self.vad_model is None:
+            return [
+                self.transcribe(
+                    a, batch_size=batch_size, chunk_size=chunk_size,
+                    language=lg, task=tk, initial_prompt=pr,
+                )
+                for a, lg, tk, pr in zip(audios, req_langs, req_tasks, req_prompts)
+            ]
+
+        devs = [upload_audio(a, self.device) for a in audios]
+        with _tracker.track("vad", sum(len(a) for a in audios) / SAMPLE_RATE):
+            per_chunks = [self._segment_with_vad(d, chunk_size) for d in devs]
+
+        langs: List[Optional[str]] = []
+        detect_idx: List[int] = []
+        for r, (chs, lg) in enumerate(zip(per_chunks, req_langs)):
+            if lg is not None:
+                langs.append(lg)
+            elif not chs or not self.model.is_multilingual:
+                langs.append("en")
+            else:
+                langs.append(None)
+                detect_idx.append(r)
+        n_mels = self.model.dims.n_mels
+        if detect_idx:
+            first_mels = torch.cat(
+                [chunk_mels(devs[r], per_chunks[r][:1], n_mels) for r in detect_idx]
+            )
+            codes, _ = _detect_language(self.model, first_mels, self._tokenizer())
+            for r, code in zip(detect_idx, codes):
+                langs[r] = code
+
+        # the requests on one virtual timeline (whole-second bases with a
+        # 1 s guard gap) so that timestamps demultiplex back per request;
+        # the audio itself never lies on it: each request's chunk mels are
+        # cut from its own resident waveform and concatenated
+        bases: List[float] = []
+        offset = 0.0
+        for a in audios:
+            bases.append(offset)
+            offset += math.ceil(len(a) / SAMPLE_RATE) + 1.0
+
+        results: List[TranscriptionResult] = [
+            {"segments": [], "language": lg} for lg in langs
+        ]
+        groups: dict = {}
+        for r, lg in enumerate(langs):
+            if per_chunks[r]:
+                groups.setdefault((lg, req_tasks[r], req_prompts[r]), []).append(r)
+
+        for (lg, tk, prompt), req_idxs in groups.items():
+            pooled: List[dict] = []
+            group_bases = [bases[r] for r in req_idxs]
+            for r in req_idxs:
+                pooled.extend(
+                    {"start": ch["start"] + bases[r], "end": ch["end"] + bases[r]}
+                    for ch in per_chunks[r]
+                )
+            mels = torch.cat([chunk_mels(devs[r], per_chunks[r], n_mels) for r in req_idxs])
+            segments = self._transcribe_chunks(
+                None, pooled, self.asr_options, batch_size=batch_size,
+                language=lg, task=tk, initial_prompt=prompt, mels=mels,
+            )
+            for seg in segments:
+                g = bisect.bisect_right(group_bases, seg["start"] + 1e-6) - 1
+                r = req_idxs[g]
+                results[r]["segments"].append(
+                    {
+                        **seg,
+                        "start": round(seg["start"] - bases[r], 3),
+                        "end": round(seg["end"] - bases[r], 3),
+                    }
+                )
+        return results
+
+    def _transcribe_chunks_sequential(
+        self,
+        audio: np.ndarray,
+        chunks: List[dict],
+        o: dict,
+        *,
+        language: str,
+        task: str,
+        verbose: bool = False,
+        initial_prompt: Optional[str] = None,
+    ) -> List[dict]:
+        """The seek loop over each VAD chunk, its segments shifted to the
+        file's timeline and clamped to the chunk's real extent."""
+        opts = self._seq_options(o=o, initial_prompt=initial_prompt)
+        segments: List[dict] = []
+        for ch in chunks:
+            s = int(ch["start"] * SAMPLE_RATE)
+            e = int(ch["end"] * SAMPLE_RATE)
+            result = seq_transcribe(
+                self.model,
+                audio[s:e],
+                language=language,
+                task=task,
+                verbose=verbose if verbose else None,
+                seed=self.seed,
+                **opts,
+            )
+            win = ch["end"] - ch["start"]
+            for seg in result["segments"]:
+                # clamp to the chunk's real extent (see _transcribe_chunks)
+                if seg["start"] >= win:
+                    continue
+                end_rel = min(seg["end"], win)
+                if end_rel <= seg["start"]:
+                    continue
+                segments.append(
+                    {
+                        "start": round(seg["start"] + ch["start"], 3),
+                        "end": round(end_rel + ch["start"], 3),
+                        "text": seg["text"],
+                    }
+                )
+        return segments
+
+    @staticmethod
+    def _seq_options(o: dict, initial_prompt: Optional[str] = None) -> dict:
+        """The seek loop's options from the pipeline's, as the JAX package
+        passes them (``kv_quant`` and ``sample_len`` are not among them, so
+        each window decodes with the cross-KV in the model's dtype)."""
+        if initial_prompt is None:
+            initial_prompt = o["initial_prompt"]
+        return {
+            "temperature": o["temperatures"],
+            "compression_ratio_threshold": o["compression_ratio_threshold"],
+            "logprob_threshold": o["log_prob_threshold"],
+            "no_speech_threshold": o["no_speech_threshold"],
+            "condition_on_previous_text": o["condition_on_previous_text"],
+            "initial_prompt": initial_prompt,
+            "word_timestamps": o["word_timestamps"],
+            "hallucination_silence_threshold": o.get("hallucination_silence_threshold"),
+            "beam_size": o["beam_size"],
+            "best_of": o["best_of"],
+            "suppress_tokens": o["suppress_tokens"],
+        }
 
     def _segment_with_vad(self, audio: DeviceAudio, chunk_size: float) -> List[dict]:
         """Device audio goes straight to device-capable VADs (only the prob
@@ -257,7 +466,7 @@ class TranscriptionPipeline:
 
     def _transcribe_chunks(
         self,
-        audio_dev: DeviceAudio,
+        audio_dev: Optional[DeviceAudio],
         chunks: List[dict],
         o: dict,
         *,
@@ -267,16 +476,20 @@ class TranscriptionPipeline:
         print_progress: bool = False,
         verbose: bool = False,
         initial_prompt: Optional[str] = None,
+        mels: Optional[torch.Tensor] = None,
     ) -> List[dict]:
+        """``mels``: the chunks' log-mels when the caller has cut them
+        (``transcribe_many``); ``audio_dev`` is then not read."""
         if initial_prompt is None:
             initial_prompt = o["initial_prompt"]
         n_mels = self.model.dims.n_mels
 
         # one mel per chunk, cut on the device from the resident waveform
         # and zero-padded to 30 s BEFORE the mel (silence has a mel floor)
-        with _tracker.track("mel", sum(c["end"] - c["start"] for c in chunks)):
-            mels = chunk_mels(audio_dev, chunks, n_mels)
-            _sync(self.device)
+        if mels is None:
+            with _tracker.track("mel", sum(c["end"] - c["start"] for c in chunks)):
+                mels = chunk_mels(audio_dev, chunks, n_mels)
+                _sync(self.device)
 
         temperatures = (
             [o["temperatures"]]
@@ -461,7 +674,9 @@ def load_model(
     bfloat16 (default), float16 (run as bfloat16, as in the JAX package),
     float32, or int8 / int4: bf16 weights with the decoder's linears
     weight-only quantized (``quant.quantize_model``; int8 runs kernel K4 on
-    CUDA).
+    CUDA). ``vad_method`` None or "none": no VAD, the seek loop over the
+    whole file. ``backend`` "sequential" (or "standard"): the seek loop over
+    each VAD chunk; anything else the batched decode.
     """
     from whisperx_tpu_torch.models.whisper import load_model as load_whisper
 
@@ -473,17 +688,15 @@ def load_model(
     quantization = compute_type if compute_type in ("int8", "int4") else None
     if quantization is None and compute_type not in dtype_map:
         raise ValueError(f"unknown compute_type {compute_type!r}")
-    if backend in ("sequential", "standard"):
-        raise NotImplementedError(f"backend={backend!r} is {_SEQUENTIAL}")
-    if not vad_method or vad_method == "none":
-        raise NotImplementedError(f"transcription without VAD is {_SEQUENTIAL}")
-    opts = {**DEFAULT_VAD_OPTIONS, **(vad_options or {})}
-    vad_model = load_vad_model(
-        vad_method,
-        vad_onset=opts["vad_onset"],
-        vad_offset=opts["vad_offset"],
-        chunk_size=opts["chunk_size"],
-    )
+    vad_model = None
+    if vad_method and vad_method != "none":
+        opts = {**DEFAULT_VAD_OPTIONS, **(vad_options or {})}
+        vad_model = load_vad_model(
+            vad_method,
+            vad_onset=opts["vad_onset"],
+            vad_offset=opts["vad_offset"],
+            chunk_size=opts["chunk_size"],
+        )
     model = load_whisper(
         whisper_arch,
         dtype=torch.bfloat16 if quantization else dtype_map[compute_type],
@@ -501,5 +714,6 @@ def load_model(
         language=normalize_language(language),
         task=task,
         batch_size=batch_size,
+        decode_mode="sequential" if backend in ("sequential", "standard") else "batched",
         seed=seed,
     )

@@ -1,13 +1,99 @@
-"""Timestamp segmentation of one decoded window.
+"""Whisper transcription: the 30 s seek loop with temperature fallback.
 
-Only ``split_timestamp_segments`` of ``whisperx_tpu/decoding/transcribe.py``
-is ported so far; the sequential seek loop comes with the decode variants
-(ROADMAP.md, Queue 1, item 8).
+Counterpart of ``whisperx_tpu/decoding/transcribe.py``, with its semantics
+(OpenAI Whisper's ``transcribe``):
+
+  - one log-mel for the whole file, computed once on the model's device
+    and sliced there per 30 s window; the window's tokens are read back once,
+    by ``decode``;
+  - the temperature-fallback ladder gated on compression ratio and average
+    log-probability, where confident silence never climbs the ladder;
+  - no-speech gating, ``condition_on_previous_text`` with the prompt reset
+    at temperatures above 0.5;
+  - timestamp-token parsing into sub-segments and seek advancement.
+
+Each window decodes at the options' ``kv_quant`` (off unless asked, as in
+JAX): the seek loop's cross-KV stays in the model's dtype and never takes
+the int8 cross-decode route (K3). Sampling at a temperature above 0 draws
+from a ``torch.Generator`` seeded with ``seed`` at every decode, as JAX
+starts every decode from ``PRNGKey(0)``; the two generators' numbers differ.
+
+Word timestamps and the hallucination-silence skip need word timing
+(ROADMAP.md, Queue 1, item 9): ``word_timestamps=True`` raises, and
+``hallucination_silence_threshold`` without words warns and is ignored, as in
+JAX. The anomaly helpers that skip reads (``_word_anomaly_score``,
+``_is_segment_anomaly``, ``_next_words_segment``,
+``evict_surrounded_anomalies``, ``_last_word_end``) are pure functions and
+are ported with this module.
+
+Returns ``{"text", "segments": [{id, seek, start, end, text, tokens,
+temperature, avg_logprob, compression_ratio, no_speech_prob}], "language"}``.
 """
 
 from __future__ import annotations
 
+import warnings
+from typing import List, Optional, Sequence, Union
+
 import numpy as np
+import torch
+
+from whisperx_tpu_torch.audio import (
+    HOP_LENGTH,
+    N_FRAMES,
+    N_SAMPLES,
+    SAMPLE_RATE,
+    log_mel_spectrogram,
+    pad_or_trim,
+)
+from whisperx_tpu_torch.decoding.decode import DecodingOptions, DecodingResult, decode
+from whisperx_tpu_torch.decoding.tokenizer import get_tokenizer
+from whisperx_tpu_torch.utils.languages import normalize_language
+
+_WORD_TIMING = "word timing: ROADMAP.md, Queue 1, item 9"
+
+
+def _decode_with_fallback(
+    model, mel, options: DecodingOptions, temperatures, thresholds, seed: int = 0
+) -> DecodingResult:
+    compression_ratio_threshold, logprob_threshold, no_speech_threshold = thresholds
+    result = None
+    for t in temperatures:
+        opts = DecodingOptions(
+            **{
+                **options.__dict__,
+                "temperature": t,
+                # beam/patience apply only at t==0; best_of only at t>0
+                "beam_size": options.beam_size if t == 0 else None,
+                "patience": options.patience if t == 0 else None,
+                "best_of": options.best_of if t > 0 else None,
+            }
+        )
+        generator = None
+        if t > 0:
+            generator = torch.Generator(device=mel.device).manual_seed(seed)
+        result = decode(model, mel, opts, generator=generator)
+        needs_fallback = False
+        if (
+            compression_ratio_threshold is not None
+            and result.compression_ratio > compression_ratio_threshold
+        ):
+            needs_fallback = True
+        if (
+            logprob_threshold is not None
+            and result.avg_logprob < logprob_threshold
+        ):
+            needs_fallback = True
+        if (
+            no_speech_threshold is not None
+            and result.no_speech_prob > no_speech_threshold
+        ):
+            # confident silence is not a quality failure: don't climb the
+            # temperature ladder re-decoding a silent window
+            needs_fallback = False
+        if not needs_fallback:
+            break
+    return result
 
 
 def split_timestamp_segments(
@@ -70,3 +156,303 @@ def split_timestamp_segments(
         segments.append((0.0, duration, tokens.tolist()))
         seek_advance = segment_size
     return segments, seek_advance, single_timestamp_ending
+
+
+def transcribe(
+    model,
+    audio: Union[str, np.ndarray],
+    *,
+    verbose: Optional[bool] = None,
+    temperature: Union[float, Sequence[float]] = (0.0, 0.2, 0.4, 0.6, 0.8, 1.0),
+    compression_ratio_threshold: Optional[float] = 2.4,
+    logprob_threshold: Optional[float] = -1.0,
+    no_speech_threshold: Optional[float] = 0.6,
+    condition_on_previous_text: bool = True,
+    initial_prompt: Optional[str] = None,
+    word_timestamps: bool = False,
+    prepend_punctuations: str = "\"'“¿([{-",
+    append_punctuations: str = "\"'.。,，!！?？:：”)]}、",
+    hallucination_silence_threshold: Optional[float] = None,
+    language: Optional[str] = None,
+    task: str = "transcribe",
+    seed: int = 0,
+    **decode_options,
+) -> dict:
+    if word_timestamps:
+        raise NotImplementedError(
+            f"word_timestamps=True is not ported yet ({_WORD_TIMING})"
+        )
+    if hallucination_silence_threshold is not None:
+        warnings.warn(
+            "hallucination_silence_threshold requires word_timestamps=True;"
+            " ignoring it."
+        )
+
+    if isinstance(audio, str):
+        from whisperx_tpu_torch.audio import load_audio
+
+        audio = load_audio(audio)
+    audio = np.asarray(audio, np.float32)
+
+    # [n_mels, frames] on the model's device, padded by 30 s of silence
+    mel_full = log_mel_spectrogram(
+        audio, model.dims.n_mels, padding=N_SAMPLES, device=model.device
+    )
+    content_frames = mel_full.shape[-1] - N_FRAMES
+
+    language = normalize_language(language)
+    if language is None:
+        if not model.is_multilingual:
+            language = "en"
+        else:
+            from whisperx_tpu_torch.decoding.decode import detect_language
+
+            tok0 = get_tokenizer(
+                True, num_languages=model.num_languages, vocab_path=model.vocab_path
+            )
+            head = pad_or_trim(mel_full[:, :N_FRAMES].T[None], N_FRAMES, axis=1)
+            codes, _ = detect_language(model, head, tok0)
+            language = codes[0]
+            if verbose:
+                print(f"Detected language: {language}")
+
+    tokenizer = get_tokenizer(
+        model.is_multilingual,
+        num_languages=model.num_languages,
+        language=language,
+        task=task,
+        vocab_path=model.vocab_path,
+    )
+
+    if isinstance(temperature, (int, float)):
+        temperatures = [float(temperature)]
+    else:
+        temperatures = list(temperature)
+
+    time_precision = 0.02
+    input_stride = 2  # mel frames per audio token
+    time_per_frame = HOP_LENGTH / SAMPLE_RATE
+
+    all_tokens: List[int] = []
+    all_segments: List[dict] = []
+    prompt_reset_since = 0
+    if initial_prompt is not None:
+        initial_prompt_tokens = (
+            list(initial_prompt)
+            if isinstance(initial_prompt, (list, tuple))
+            else tokenizer.encode(" " + initial_prompt.strip())
+        )
+        all_tokens.extend(initial_prompt_tokens)
+
+    seek = 0
+
+    def new_segment(start, end, tokens, result: DecodingResult):
+        tokens = [t for t in tokens]
+        text_tokens = [t for t in tokens if t < tokenizer.eot]
+        return {
+            "seek": seek,
+            "start": start,
+            "end": end,
+            "text": tokenizer.decode(text_tokens),
+            "tokens": tokens,
+            "temperature": result.temperature,
+            "avg_logprob": result.avg_logprob,
+            "compression_ratio": result.compression_ratio,
+            "no_speech_prob": result.no_speech_prob,
+        }
+
+    base_opts = {
+        k: v
+        for k, v in decode_options.items()
+        if k in DecodingOptions.__dataclass_fields__
+        and k not in ("temperature", "prompt", "language", "task")
+    }
+
+    while seek < content_frames:
+        time_offset = seek * time_per_frame
+        segment_size = min(N_FRAMES, content_frames - seek)
+        # the window, cut and padded on the device: [N_FRAMES, n_mels]
+        mel_in = pad_or_trim(mel_full[:, seek : seek + N_FRAMES], N_FRAMES, axis=-1).T
+
+        # prompt_reset_since already sits past the initial prompt when
+        # conditioning is off, so the upstream slice covers every case
+        prompt = all_tokens[prompt_reset_since:]
+        options = DecodingOptions(
+            task=task,
+            language=language,
+            prompt=list(prompt) if prompt else None,
+            **base_opts,
+        )
+        result = _decode_with_fallback(
+            model,
+            mel_in,
+            options,
+            temperatures,
+            (compression_ratio_threshold, logprob_threshold, no_speech_threshold),
+            seed=seed,
+        )
+        tokens = np.asarray(result.tokens)
+
+        if no_speech_threshold is not None:
+            should_skip = result.no_speech_prob > no_speech_threshold
+            if (
+                logprob_threshold is not None
+                and result.avg_logprob > logprob_threshold
+            ):
+                # confident text despite no_speech: don't skip
+                should_skip = False
+            if should_skip:
+                seek += segment_size
+                continue
+
+        raw_segments, seek_advance, _ = split_timestamp_segments(
+            tokens,
+            timestamp_begin=tokenizer.timestamp_begin,
+            segment_size=segment_size,
+            time_precision=time_precision,
+            input_stride=input_stride,
+        )
+        current_segments = [
+            new_segment(time_offset + s, time_offset + e, toks, result)
+            for s, e, toks in raw_segments
+        ]
+        seek += seek_advance
+
+        if verbose:
+            for segment in current_segments:
+                print(
+                    f"[{segment['start']:.2f} --> {segment['end']:.2f}] "
+                    f"{segment['text']}"
+                )
+
+        for segment in current_segments:
+            if segment["start"] == segment["end"] or not segment["text"].strip():
+                segment["text"] = ""
+                segment["tokens"] = []
+                segment["words"] = []
+        all_segments.extend(
+            {"id": i, **seg}
+            for i, seg in enumerate(current_segments, start=len(all_segments))
+        )
+        all_tokens.extend(
+            t for seg in current_segments for t in seg["tokens"] if t < tokenizer.eot
+        )
+        if not condition_on_previous_text or result.temperature > 0.5:
+            prompt_reset_since = len(all_tokens)
+
+    all_segments = [s for s in all_segments if s["text"]]
+    for i, seg in enumerate(all_segments):  # keep ids contiguous post-filter
+        seg["id"] = i
+    return {
+        "text": "".join(s["text"] for s in all_segments),
+        "segments": all_segments,
+        "language": language,
+    }
+
+
+# punctuation-only "words" carry no timing evidence for anomaly scoring
+_ANOMALY_PUNCTUATION = "\"'“¿([{-" + "\"'.。,，!！?？:：”)]}、"
+
+
+def _word_anomaly_score(word: dict) -> float:
+    """How implausible one word's (probability, duration) pair is.
+
+    Whisper's hallucination heuristic: low-confidence words, impossibly
+    fast words (<133 ms) and implausibly slow ones (>2 s) each add to the
+    score; a segment of such words is a hallucination candidate.
+    """
+    probability = word.get("probability", 0.0)
+    duration = word["end"] - word["start"]
+    score = 0.0
+    if probability < 0.15:
+        score += 1.0
+    if duration < 0.133:
+        score += (0.133 - duration) * 15
+    if duration > 2.0:
+        score += duration - 2.0
+    return score
+
+
+def _is_segment_anomaly(segment: Optional[dict]) -> bool:
+    if segment is None or not segment.get("words"):
+        return False
+    words = [
+        w for w in segment["words"] if w["word"] not in _ANOMALY_PUNCTUATION
+    ][:8]
+    score = sum(_word_anomaly_score(w) for w in words)
+    return score >= 3 or score + 0.01 >= len(words)
+
+
+def _next_words_segment(segments: List[dict]) -> Optional[dict]:
+    return next((s for s in segments if s.get("words")), None)
+
+
+def evict_surrounded_anomalies(
+    segments: List[dict],
+    *,
+    threshold: float,
+    time_offset: float,
+    window_end_time: float,
+    segment_duration: float,
+    last_speech_timestamp: float,
+    keep_tail: bool = False,
+):
+    """Drop anomalous segments that are surrounded by silence (or by more
+    anomalies).
+
+    Shared between the seek loop and the batched pipeline, whose recovery
+    abilities differ: the seek loop re-seeks to the evicted segment's
+    start and re-decodes everything after it, so the tail is dropped here
+    (``keep_tail=False``, upstream semantics); the batched pipeline's
+    VAD-bounded chunks have nothing to re-seek into, so it must keep the
+    already-decoded tail (``keep_tail=True``) and only the surrounded
+    anomalies themselves are removed — the scan continues past each one.
+    Returns ``(kept_segments, first_evicted_segment_or_None)``.
+    """
+    hal_last_end = last_speech_timestamp
+    drop: set = set()
+    first_evicted = None
+    for si, segment in enumerate(segments):
+        if not segment.get("words"):
+            continue
+        if _is_segment_anomaly(segment):
+            next_segment = _next_words_segment(segments[si + 1 :])
+            if next_segment is not None:
+                hal_next_start = next_segment["words"][0]["start"]
+            else:
+                hal_next_start = time_offset + segment_duration
+            silence_before = (
+                segment["start"] - hal_last_end > threshold
+                or segment["start"] < threshold
+                or segment["start"] - time_offset < 2.0
+            )
+            silence_after = (
+                hal_next_start - segment["end"] > threshold
+                or _is_segment_anomaly(next_segment)
+                or window_end_time - segment["end"] < 2.0
+            )
+            if silence_before and silence_after:
+                if not keep_tail:
+                    return segments[:si], segment
+                drop.add(si)
+                if first_evicted is None:
+                    first_evicted = segment
+                # an evicted hallucination is not speech: the silence
+                # baseline for the NEXT candidate must not advance past it
+                continue
+        hal_last_end = segment["end"]
+    if drop:
+        return [s for i, s in enumerate(segments) if i not in drop], first_evicted
+    return segments, None
+
+
+def _last_word_end(segments: List[dict]) -> Optional[float]:
+    """End time of the last word across segments (whisper's get_end)."""
+    return next(
+        (
+            w["end"]
+            for s in reversed(segments)
+            for w in reversed(s.get("words", []))
+        ),
+        None,
+    )

@@ -15,7 +15,10 @@ it step by step so that f32 runs agree with the JAX package to rounding:
   - GELU is the tanh approximation (``jax.nn.gelu``'s default);
   - the encoder's self-attention goes through the K1 kernel
     (``ops/flash_attention.py``); the decoder's attention is plain matrix
-    products, as it is in the JAX package;
+    products, as it is in the JAX package, except behind its opt-in
+    (``WHISPERX_TPU_CROSS_DECODE``): a one-token step's cross-attention
+    over the int8 cache then goes through K3
+    (``ops/cross_attention_decode.py``);
   - a weight-only quantized linear (``quant.QuantizedLinear``) goes through
     ``quant_linear_apply``: K4 for int8 on CUDA (``ops/quant_matmul.py``).
 """
@@ -32,6 +35,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from whisperx_tpu_torch.models.whisper.config import ModelDimensions
+from whisperx_tpu_torch.ops.cross_attention_decode import (
+    cross_attention_decode,
+    use_cross_decode_kernel,
+)
 from whisperx_tpu_torch.ops.flash_attention import flash_attention
 from whisperx_tpu_torch.quant.core import QuantizedLinear, quant_linear_apply
 from whisperx_tpu_torch.utils.precision import reference_matmul
@@ -399,14 +406,18 @@ def precompute_cross_kv(
 
 
 def _cross_attention(
-    cq: torch.Tensor, ck: CrossKV, cv: CrossKV
+    cq: torch.Tensor, ck: CrossKV, cv: CrossKV, use_kernel: bool = False
 ) -> torch.Tensor:
+    """``use_kernel``: a one-token step under the opt-in, where an int8 cache
+    goes through K3 (its query rounded to bf16, as in JAX)."""
     if not isinstance(ck, QuantizedKV):
         return qkv_attention(cq, ck, cv)
     dh = cq.shape[-1]
     # the K channel scales and 1/√dh fold into q (rounded to q's dtype, as
     # in JAX); the int8 values are exact in any float type
     q_eff = (cq.float() * ck.scale * (dh**-0.5)).to(cq.dtype)
+    if use_kernel:
+        return (cross_attention_decode(q_eff, ck.q8, cv.q8) * cv.scale).to(cq.dtype)
     scores = torch.einsum("bqhd,bkhd->bhqk", q_eff.float(), ck.q8.float())
     weights = torch.softmax(scores, dim=-1)
     cattn = torch.einsum(
@@ -446,6 +457,8 @@ def decoder_forward(
     k_pos = torch.arange(cache_len, device=device)[None, :]
     self_mask = torch.zeros((t_new, cache_len), dtype=torch.float32, device=device)
     self_mask.masked_fill_(k_pos > positions[:, None], float("-inf"))
+    # the cross-decode opt-in, read once per pass (JAX reads it per layer)
+    use_k3 = t_new == 1 and beam_groups == 1 and use_cross_decode_kernel(device)
 
     for i, blk in enumerate(dec.blocks):
         h = layer_norm(blk.attn_ln, x)
@@ -463,7 +476,7 @@ def decoder_forward(
         cq = _split_heads(linear(blk.cross_attn.query, h), n_head)
         if beam_groups > 1:  # fold the beams into the query axis
             cq = cq.reshape(b // beam_groups, beam_groups * t_new, n_head, -1)
-        cattn = _cross_attention(cq, cache.cross_k[i], cache.cross_v[i])
+        cattn = _cross_attention(cq, cache.cross_k[i], cache.cross_v[i], use_k3)
         if beam_groups > 1:  # unfold back to per-beam rows
             cattn = cattn.reshape(b, t_new, n_head, -1)
         x = x + linear(blk.cross_attn.out, _merge_heads(cattn))

@@ -1,7 +1,10 @@
-// K1: non-causal attention over the whole key axis, for Hopper (sm_90a).
+// K1, K1b, K2: softmax attention for Hopper (sm_90a), one kernel with modes.
 //
-// Replaces the TPU kernel whisperx_tpu/ops/flash_attention.py::_wholek_kernel
-// (reached through _flash_attention_wholek). Computes
+// Replaces the TPU kernels of whisperx_tpu/ops/flash_attention.py:
+//   K1   _wholek_kernel         (:125, through _flash_attention_wholek, :190)
+//   K1b  _wholek_mxusum_kernel  (:163, the same function with mxu_sum=True)
+//   K2   _flash_kernel          (:33,  through _flash_attention_pallas, :85)
+// Computes
 //     out = softmax(q kᵀ / √D) v
 // for q, k, v laid out [BH, T, D] (row-major, contiguous), accumulating in
 // f32 and writing the input dtype. As in the TPU kernel, the softmax scale
@@ -38,6 +41,24 @@
 // skip_max drops the running-max rescale (the TPU kernel's skip_max): the
 // scores are exponentiated as they are, which stays finite in f32 while the
 // scaled logits are below ~128.
+//
+// The modes (the `mode` argument):
+//   0  K1: as above.
+//   1  K1 with skip_max.
+//   2  K1b: the denominator sums P after its rounding to the input dtype,
+//      l = Σ bf16(p), which is what the TPU kernel's ones column appended
+//      to V computes on the MXU; the P·V tiles do not change. In f32 the
+//      rounding is the identity, so mode 2 is mode 0.
+//   3  K2: the tiled online-softmax kernel, for keys past the whole-K
+//      kernel's 2048: the same streaming loop, with the TPU kernel's
+//      out = acc / max(l, 1e-20).
+//   4  K2 causal: query i attends keys j ≤ i + (Tk − Tq), the mask aligned
+//      at the end of the keys, as the JAX package's XLA route and the
+//      decoder's own mask align it (the Pallas kernel aligns it at the
+//      start, j ≤ i; the two agree when Tq = Tk). A query tile stops at the
+//      last key tile any of its rows can see, so fully masked tiles are
+//      skipped as on the TPU. Needs Tq ≤ Tk.
+// K2's bound is operations too: 2·BH·T²·D for the causal case at Tq = Tk.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -116,13 +137,23 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16 (*dst)[D + kPad],
   }
 }
 
-template <int D, bool SKIP_MAX>
+enum Mode { kK1 = 0, kK1SkipMax = 1, kK1b = 2, kK2 = 3, kK2Causal = 4 };
+
+// the last key (exclusive) that rows [r0, r1) can attend: all of them, or
+// under the causal mask j ≤ i + (tk − tq)
+template <int MODE>
+__device__ __forceinline__ int key_end(int r1, int tq, int tk) {
+  return MODE == kK2Causal ? min(tk, r1 - 1 + (tk - tq) + 1) : tk;
+}
+
+template <int D, int MODE>
 __global__ void __launch_bounds__(kWarps * 32)
 wholek_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                              const __nv_bfloat16* __restrict__ k,
                              const __nv_bfloat16* __restrict__ v,
                              __nv_bfloat16* __restrict__ o, int tq, int tk,
                              float kscale) {
+  constexpr bool SKIP_MAX = MODE == kK1SkipMax;
   constexpr int kS = kBK / 8;  // n8 score tiles per key tile
   constexpr int kO = D / 8;    // n8 output tiles
   constexpr int kK = D / 16;   // k16 steps over the head dimension
@@ -154,7 +185,8 @@ wholek_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   float m[2] = {SKIP_MAX ? 0.f : -CUDART_INF_F, SKIP_MAX ? 0.f : -CUDART_INF_F};
   float l[2] = {0.f, 0.f};  // per-thread partial sums, reduced at the end
 
-  for (int k0 = 0; k0 < tk; k0 += kBK) {
+  const int k_end = key_end<MODE>(min(q0 + kBQ, tq), tq, tk);
+  for (int k0 = 0; k0 < k_end; k0 += kBK) {
     const int n = min(kBK, tk - k0);
     __syncthreads();  // every warp is done with the previous K/V tile
     load_tile<D, false>(ks, kb + static_cast<size_t>(k0) * D, kBK, n, 1.f);
@@ -185,6 +217,8 @@ wholek_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       for (int e = 0; e < 4; ++e) {
         const int key = j * 8 + (lane % 4) * 2 + (e % 2);
         if (key >= n) s[j][e] = -CUDART_INF_F;
+        if (MODE == kK2Causal && k0 + key > q0 + wr + lane / 4 + 8 * (e / 2) + (tk - tq))
+          s[j][e] = -CUDART_INF_F;
         tile_max[e / 2] = fmaxf(tile_max[e / 2], s[j][e]);
       }
     }
@@ -210,7 +244,8 @@ wholek_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         s[j][e] = exp2f(s[j][e] - m_new[e / 2]);
-        l[e / 2] += s[j][e];
+        // K1b: the denominator of the rounded weights, as P·V sees them
+        l[e / 2] += MODE == kK1b ? __bfloat162float(__float2bfloat16_rn(s[j][e])) : s[j][e];
       }
     }
 
@@ -239,6 +274,7 @@ wholek_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    if (MODE >= kK2) l[r] = fmaxf(l[r], 1e-20f);
     const int row = q0 + wr + lane / 4 + 8 * r;
     if (row < tq) {
       __nv_bfloat16* orow = o + (static_cast<size_t>(bh) * tq + row) * D;
@@ -258,11 +294,12 @@ wholek_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 constexpr int kF32BQ = 64;  // query rows per block, one thread each
 constexpr int kF32BK = 32;  // keys per shared-memory tile
 
-template <int D, bool SKIP_MAX>
+template <int D, int MODE>
 __global__ void __launch_bounds__(kF32BQ)
 wholek_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                             const float* __restrict__ v, float* __restrict__ o,
                             int tq, int tk, float kscale) {
+  constexpr bool SKIP_MAX = MODE == kK1SkipMax;
   __shared__ float ks[kF32BK][D];
   __shared__ float vs[kF32BK][D];
 
@@ -284,7 +321,8 @@ wholek_attention_f32_kernel(const float* __restrict__ q, const float* __restrict
   float m = SKIP_MAX ? 0.f : -CUDART_INF_F;
   float l = 0.f;
 
-  for (int k0 = 0; k0 < tk; k0 += kF32BK) {
+  const int k_end = key_end<MODE>(min(static_cast<int>(blockIdx.x) * kF32BQ + kF32BQ, tq), tq, tk);
+  for (int k0 = 0; k0 < k_end; k0 += kF32BK) {
     const int n = min(kF32BK, tk - k0);
     __syncthreads();
     for (int i = threadIdx.x; i < kF32BK * D; i += kF32BQ) {
@@ -307,7 +345,7 @@ wholek_attention_f32_kernel(const float* __restrict__ q, const float* __restrict
     float tile_max = -CUDART_INF_F;
 #pragma unroll
     for (int j = 0; j < kF32BK; ++j) {
-      if (j >= n) s[j] = -CUDART_INF_F;
+      if (j >= n || (MODE == kK2Causal && k0 + j > row + (tk - tq))) s[j] = -CUDART_INF_F;
       tile_max = fmaxf(tile_max, s[j]);
     }
     float m_new = m;
@@ -328,6 +366,7 @@ wholek_attention_f32_kernel(const float* __restrict__ q, const float* __restrict
     m = m_new;
   }
 
+  if (MODE >= kK2) l = fmaxf(l, 1e-20f);
   if (active) {
     float* orow = o + (static_cast<size_t>(bh) * tq + row) * D;
 #pragma unroll
@@ -335,42 +374,51 @@ wholek_attention_f32_kernel(const float* __restrict__ q, const float* __restrict
   }
 }
 
-template <int D, bool SKIP_MAX>
+template <int D, int MODE>
 void launch(const void* q, const void* k, const void* v, void* o, int bh,
             int tq, int tk, int dtype, float kscale, cudaStream_t stream) {
   if (dtype == 1) {
     const dim3 grid((tq + kBQ - 1) / kBQ, bh);
-    wholek_attention_bf16_kernel<D, SKIP_MAX><<<grid, kWarps * 32, 0, stream>>>(
+    wholek_attention_bf16_kernel<D, MODE><<<grid, kWarps * 32, 0, stream>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), tq,
         tk, kscale);
   } else {
     const dim3 grid((tq + kF32BQ - 1) / kF32BQ, bh);
-    wholek_attention_f32_kernel<D, SKIP_MAX><<<grid, kF32BQ, 0, stream>>>(
+    // K1b's rounding is the identity in f32
+    constexpr int kMode = MODE == kK1b ? kK1 : MODE;
+    wholek_attention_f32_kernel<D, kMode><<<grid, kF32BQ, 0, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o), tq, tk, kscale);
   }
 }
 
+template <int D>
+void launch_mode(const void* q, const void* k, const void* v, void* o, int bh,
+                 int tq, int tk, int dtype, int mode, float kscale, cudaStream_t s) {
+  switch (mode) {
+    case kK1: launch<D, kK1>(q, k, v, o, bh, tq, tk, dtype, kscale, s); break;
+    case kK1SkipMax: launch<D, kK1SkipMax>(q, k, v, o, bh, tq, tk, dtype, kscale, s); break;
+    case kK1b: launch<D, kK1b>(q, k, v, o, bh, tq, tk, dtype, kscale, s); break;
+    case kK2: launch<D, kK2>(q, k, v, o, bh, tq, tk, dtype, kscale, s); break;
+    default: launch<D, kK2Causal>(q, k, v, o, bh, tq, tk, dtype, kscale, s); break;
+  }
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; d: 32 or 64. Pointers are 16-byte
-// aligned, contiguous [BH, T, D]. Returns the launch's cudaError_t.
-extern "C" int wholek_attention(const void* q, const void* k, const void* v,
+// dtype: 0 = float32, 1 = bfloat16; d: 32 or 64; mode: see the top of the
+// file (mode 4 needs tq <= tk). Pointers are 16-byte aligned, contiguous
+// [BH, T, D]. Returns the launch's cudaError_t.
+extern "C" int attention_launch(const void* q, const void* k, const void* v,
                                 void* o, int bh, int tq, int tk, int d,
-                                int dtype, int skip_max, float kscale,
-                                void* stream) {
+                                int dtype, int mode, float kscale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bh <= 0 || bh > 65535 || tq <= 0 || tk <= 0 || (dtype != 0 && dtype != 1))
+  if (bh <= 0 || bh > 65535 || tq <= 0 || tk <= 0 || (dtype != 0 && dtype != 1) ||
+      mode < kK1 || mode > kK2Causal || (mode == kK2Causal && tq > tk))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (d == 64) {
-    if (skip_max) launch<64, true>(q, k, v, o, bh, tq, tk, dtype, kscale, s);
-    else launch<64, false>(q, k, v, o, bh, tq, tk, dtype, kscale, s);
-  } else if (d == 32) {
-    if (skip_max) launch<32, true>(q, k, v, o, bh, tq, tk, dtype, kscale, s);
-    else launch<32, false>(q, k, v, o, bh, tq, tk, dtype, kscale, s);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (d == 64) launch_mode<64>(q, k, v, o, bh, tq, tk, dtype, mode, kscale, s);
+  else if (d == 32) launch_mode<32>(q, k, v, o, bh, tq, tk, dtype, mode, kscale, s);
+  else return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }

@@ -42,10 +42,6 @@ _NOT_PORTED = (
      "word timing: ROADMAP.md, Queue 1, item 9"),
     ("--draft_model", lambda a: a["draft_model"] is not None,
      "speculative decoding: ROADMAP.md, Queue 1, item 8"),
-    ("--backend sequential", lambda a: a["backend"] == "sequential",
-     "the sequential seek loop: ROADMAP.md, Queue 1, item 8"),
-    ("--vad_method none", lambda a: a["vad_method"] == "none",
-     "the sequential seek loop: ROADMAP.md, Queue 1, item 8"),
     ("--vad_method pyannote/hybrid", lambda a: a["vad_method"] in ("pyannote", "hybrid"),
      "the other VADs: ROADMAP.md, Queue 1, item 10"),
     ("--data_parallel on", lambda a: a["data_parallel"] == "on",
