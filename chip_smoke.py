@@ -12,8 +12,10 @@ Phases, each of which passes or raises (the script then exits non-zero):
      the shapes the main paths give it, with stated tolerances; times of the
      kernel, the plain version and one PyTorch library call (the yardstick,
      never used by the port), and the bound for the same work: K1, K1b and
-     K2 (``flash_attention.cu``), K4 (``quant_matmul.cu``), K3, K3kt and
-     K3i8 (``cross_attention_decode.cu``);
+     K2 (``flash_attention.cu``), K4 (``quant_matmul.cu``, at every shape
+     of the int8 CLI path), K3, K3kt and K3i8
+     (``cross_attention_decode.cu``); each K1, K1b, K2 and K4 case is called
+     twice and must give the same bits;
   4. main path: ``whisperx_tpu_torch.load_model("large-v3", ...)`` at full
      width with random weights, ``.transcribe`` of ~120 s of synthetic
      speech; the kernel launch counts are reset just before and read just
@@ -35,8 +37,10 @@ Phases, each of which passes or raises (the script then exits non-zero):
      --compute_type int8 --vad_method energy --language en --no_align -f all``
      (beam 5, the CLI default, at one temperature), driven in-process through
      ``build_parser`` and ``transcribe_task`` so that the launch counts can be
-     read: every int8 decoder linear must have gone through K4; then the
-     decode profile of phase 5 for that int8 model with 5 beams;
+     read: every int8 decoder linear must have gone through K4, as often
+     per shape as the code implies; K4's device time per CLI run (Σ
+     launches × ms per shape) against its floor (Σ launches × bound); then
+     the decode profile of phase 5 for that int8 model with 5 beams;
   7. small model: f32 ``test-nano`` through the same pipeline on CUDA and on
      the CPU with the same weights; segments and greedy tokens must match,
      and the seek loop's segments and tokens too; then quantized to int8,
@@ -45,6 +49,13 @@ Phases, each of which passes or raises (the script then exits non-zero):
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA GPU, or without the
 package beside this file, it exits non-zero and prints no result.
+
+    python3 chip_smoke.py --kernels
+
+runs phases 1-3 for K1, K1b, K2 and K4 only (their checks, determinism and
+per-shape times) and prints their entries. Copied into a checkout of
+another commit, it times that commit's kernels the same way: run both in
+one call to compare two versions on one card.
 """
 
 from __future__ import annotations
@@ -54,6 +65,7 @@ import itertools
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -166,9 +178,24 @@ def phase_card() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
-    print(f"[card] torch {torch.__version__} cuda {torch.version.cuda} device {name}")
+    print(f"[card] {REPO}: torch {torch.__version__} cuda {torch.version.cuda} device {name}")
     print(smi)  # name, power limit: as nvidia-smi prints them
     return name
+
+
+def kernel_name(line: str) -> str:
+    """``name<template args>`` of the kernel on a ptxas line (mangled: the
+    length-prefixed identifier that ends in ``_kernel``) or in a profiler's
+    key (demangled)."""
+    for digits in re.finditer(r"(?=(\d+))", line):
+        start = digits.start() + len(digits.group(1))
+        name = line[start : start + int(digits.group(1))]
+        if name.endswith("_kernel") and re.fullmatch(r"[A-Za-z_]\w*", name):
+            targs = re.match(r"(I(?:L[ib]\d+E)+E)?", line[start + len(name):]).group(0)
+            args = re.findall(r"L[ib](\d+)E", targs)
+            return name + (f"<{','.join(args)}>" if args else "")
+    demangled = re.search(r"(\w+_kernel)(<[^<>()]*>)?", line)  # a profiler's key
+    return demangled.group(0) if demangled else line.strip()[:60]
 
 
 def phase_build() -> None:
@@ -178,10 +205,17 @@ def phase_build() -> None:
     with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
         list(pool.map(_build.load, KERNEL_SOURCES))
     print(f"[build] {', '.join(f'{n}.cu' for n in KERNEL_SOURCES)} in {time.perf_counter() - t0:.2f} s")
+    # ptxas per kernel: registers, barriers, static shared memory, spills
     for name in KERNEL_SOURCES:
+        kernel = spill = None
         for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}")
+            if "entry function" in line:
+                kernel = kernel_name(line)
+            elif "spill" in line:
+                spill = line.strip()
+            elif "registers" in line and kernel:
+                print(f"[build] {name}: {kernel}: {line.split(':', 1)[-1].strip()}; {spill}")
+                kernel = spill = None
 
 
 def attention_case(bh, t, d, dtype, seed=0, tk=None):
@@ -222,7 +256,8 @@ def phase_kernels() -> list:
     ``mxu_sum`` mode) at K1's shape; K2 causal at the same shape in bf16
     and f32, with fewer queries than keys, and non-causal over 3000 keys
     ([20, 3000, 64], past the whole-K kernel's 2048). K1b and K2 have no
-    caller in the package: these are their shapes had they one."""
+    caller in the package: these are their shapes had they one. Every case
+    is called twice and must give the same bits."""
     import torch
     import torch.nn.functional as F
 
@@ -264,6 +299,7 @@ def phase_kernels() -> list:
         out = wholek_attention(q, k, v, skip_max=skip_max)
         ref = _attention_reference(q, k, v, skip_max=skip_max)
         err = check_attention(f"K1 {label}", out, ref, tol, q.shape)
+        same_bits(f"K1 {label}", out, wholek_attention(q, k, v, skip_max=skip_max))
         if not entries:
             esize = q.element_size()
             # [1, BH, T, D]: 4-D so PyTorch can pick its flash backend
@@ -282,6 +318,7 @@ def phase_kernels() -> list:
     err = check_attention(
         "K1b mxu_sum bf16", out, _attention_reference(q, k, v, mxu_sum=True), 1e-2, q.shape
     )
+    same_bits("K1b mxu_sum bf16", out, wholek_attention(q, k, v, mxu_sum=True))
     entries.append(timed(
         "K1b wholek_attention(mxu_sum)", 163, lambda: wholek_attention(q, k, v, mxu_sum=True),
         lambda: _attention_reference(q, k, v, mxu_sum=True),
@@ -304,6 +341,7 @@ def phase_kernels() -> list:
         out = flash_attention_tiled(q, k, v, causal=causal)
         ref = _flash_reference(q, k, v, causal=causal, bk=K2_BLOCK_KEYS)
         err = check_attention(f"K2 {label}", out, ref, tol, q.shape)
+        same_bits(f"K2 {label}", out, flash_attention_tiled(q, k, v, causal=causal))
         if is_timed:
             esize = q.element_size()
             ops = 2 * bh * tq * tk * d if causal else 4 * bh * tq * tk * d
@@ -474,19 +512,39 @@ def quant_case(m, k, n, dtype, group_size=64, seed=0):
     return x.to(dtype).cuda(), q["qw"].cuda(), q["scale"].cuda()
 
 
-def phase_k4() -> dict:
-    """K4 against its plain version at the shapes of the int8 CLI path
-    (large-v3, group 64): decode steps at 8 rows (greedy) and 40 (beam 5,
-    batch 8) for the (1280, 5120) and (5120, 1280) weights, the cross-KV
-    projection at 12000 rows (batch 8 × 1500 frames), a ragged 13-row case,
-    and f32 (test-sized models run K4 in f32); untimed, groups 32 and 16 (a
-    checkpoint quantized with another group size) at an N that is not a
-    multiple of 16, which take the kernel's other K chunks and its scalar
-    weight loads. Timed with enough copies of
-    the weights cycled to overflow the 50 MB L2, as the decode step (240
-    different weights) finds them cold."""
+# K4's shapes on the int8 CLI path (large-v3, group 64): the weights (K, N)
+# of a quantized decoder block (self q/k/v/out and cross q/out; mlp1; mlp2)
+# at the rows of each call: a greedy or beam-5 decode step over 8 slots, the
+# beam-5 prefill of the 3-token prompt, the cross-KV projection of 8 × 1500
+# frames (cross key and value only)
+K4_WEIGHTS = ((1280, 1280), (1280, 5120), (5120, 1280))
+K4_ROWS = (("decode greedy", 8), ("decode beam 5", 40), ("prefill beam 5", 120), ("cross-KV", 12000))
+
+
+def same_bits(label, a, b) -> None:
+    """Two calls of a kernel on the same inputs must agree bit for bit."""
     import torch
 
+    ok = torch.equal(a, b)
+    print(f"[kernels] {label}: two calls bit-identical {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: two calls on the same inputs differ")
+
+
+def phase_k4():
+    """K4 against its plain version at every shape of the int8 CLI path
+    (K4_ROWS × K4_WEIGHTS; the cross-KV rows only at (1280, 1280)), a
+    ragged 13-row case, f32 (test-sized models run K4 in f32), and,
+    untimed, groups 32 and 16 (a checkpoint quantized with another group
+    size) at an N that is not a multiple of 16, which take the plain tiled
+    path. Every case is called twice and must give the same bits. Each
+    CLI shape is timed with enough copies of the weights cycled to overflow
+    the 50 MB L2, as the decode step (240 different weights) finds them
+    cold. Returns the kernels-line entry (M 40 × (1280, 5120), as before)
+    and one record per timed shape."""
+    import torch
+
+    from whisperx_tpu_torch.ops import quant_matmul as qm
     from whisperx_tpu_torch.ops.quant_matmul import _quant_matmul_reference, int8_matmul
     from whisperx_tpu_torch.quant import QuantizedLinear, dequantize
 
@@ -494,12 +552,14 @@ def phase_k4() -> dict:
     # (both sum exact products in f32, in different orders, and round once);
     # f32: 1e-4·max|ref| (order of the f32 sums only)
     tol = {torch.bfloat16: 2.0**-7, torch.float32: 1e-4}
-    cases = [
+    timed = [
+        (f"{label}, K {k} N {n}", m, k, n, torch.bfloat16, 64, True)
+        for label, m in K4_ROWS
+        for k, n in K4_WEIGHTS
+        if m != 12000 or (k, n) == (1280, 1280)
+    ]
+    cases = timed + [
         # (label, m, k, n, dtype, group, timed)
-        ("decode beam 5, mlp1", 40, 1280, 5120, torch.bfloat16, 64, True),
-        ("decode greedy, mlp1", 8, 1280, 5120, torch.bfloat16, 64, False),
-        ("decode beam 5, mlp2", 40, 5120, 1280, torch.bfloat16, 64, False),
-        ("cross-KV batch 8", 12000, 1280, 1280, torch.bfloat16, 64, True),
         ("ragged", 13, 1280, 1280, torch.bfloat16, 64, False),
         ("f32", 40, 1280, 5120, torch.float32, 64, False),
         ("group 32, ragged N", 13, 256, 100, torch.bfloat16, 32, False),
@@ -507,8 +567,9 @@ def phase_k4() -> dict:
         ("group 32", 40, 256, 128, torch.bfloat16, 32, False),
         ("f32 group 32, ragged N", 13, 256, 100, torch.float32, 32, False),
     ]
-    main = None
-    for label, m, k, n, dtype, group, timed in cases:
+    plan_of = getattr(qm, "launch_plan", None)  # absent before the split-K design
+    main, shapes = None, []
+    for label, m, k, n, dtype, group, is_timed in cases:
         x, qw, scale = quant_case(m, k, n, dtype, group)
         out = int8_matmul(x, qw, scale, group)
         torch.cuda.synchronize()
@@ -517,14 +578,17 @@ def phase_k4() -> dict:
         mag = ref.float().abs().max().item()
         limit = tol[dtype] * mag
         ok = math.isfinite(err) and err <= limit and out.shape == (m, n) and out.dtype == dtype
+        plan = plan_of(m, k, n, group, dtype) if plan_of else {"regime": "64 x 64 tiles", "grid": None}
         print(
-            f"[kernels] K4 {label}: M={m} K={k} N={n} group {group} {str(dtype)[6:]} max_abs_err "
+            f"[kernels] K4 {label}: M={m} K={k} N={n} group {group} {str(dtype)[6:]} "
+            f"({plan['regime']}, grid {plan['grid']}) max_abs_err "
             f"{err:.3e} (tol {limit:.3e} = {tol[dtype]:g}·max|ref| {mag:.3f}) "
             f"{'ok' if ok else 'FAIL'}"
         )
         if not ok:
             raise AssertionError(f"K4 {label}: max_abs_err {err} > {limit}")
-        if timed:
+        same_bits(f"K4 {label}", out, int8_matmul(x, qw, scale, group))
+        if is_timed:
             copies = max(1, math.ceil(2 * L2_BYTES / (qw.numel() + scale.numel() * 4)))
             weights = [(qw.clone(), scale.clone()) for _ in range(copies)]
             cycle = itertools.cycle(weights)
@@ -549,7 +613,9 @@ def phase_k4() -> dict:
                 f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
                 f"(ops {ops_ms:.4f}, bytes {bytes_ms:.4f})"
             )
-            if main is None:
+            shapes.append({"m": m, "k": k, "n": n, "regime": plan["regime"], "ms": ms,
+                           "bound_ms": bound_ms, "library_ms": library_ms})
+            if (m, k, n) == (40, 1280, 5120):
                 main = {
                     "name": "K4 int8_matmul",
                     "route": "cuda",
@@ -566,7 +632,7 @@ def phase_k4() -> dict:
             del weights, dense
         del x, qw, scale, out, ref
     torch.cuda.empty_cache()
-    return main
+    return main, shapes
 
 
 def phase_main_path(k1: dict):
@@ -687,6 +753,18 @@ def phase_decode_profile(model, tag: str = "profile", beam_size=None, k3=None) -
         print(
             f"[{tag}] {e.self_device_time_total / 1e3:10.3f} ms "
             f"{e.count:7d} calls  {e.key[:90]}"
+        )
+    k4_events = [e for e in events if "int8_matmul" in e.key or "splitk_reduce" in e.key]
+    if k4_events:  # K4: its kernels (a split-K call launches two), by name
+        k4_ms = sum(e.self_device_time_total for e in k4_events) / 1e3
+        k4_calls = sum(e.count for e in k4_events if "reduce" not in e.key)
+        print(
+            f"[{tag}] K4 device time per decode {k4_ms:.3f} ms over {k4_calls} calls "
+            f"({k4_ms / max(k4_calls, 1):.4f} ms a call, {k4_ms / device_s / 1e3:.1%} of the "
+            f"kernel time): " + "; ".join(
+                f"{kernel_name(e.key)} {e.count} x {e.self_device_time_total / 1e3 / e.count:.4f} ms"
+                for e in sorted(k4_events, key=lambda e: -e.self_device_time_total)
+            )
         )
     if k3 is not None:
         k3_events = [e for e in events if "cross_decode_kernel" in e.key]
@@ -867,14 +945,33 @@ def phase_sequential() -> None:
     torch.cuda.empty_cache()
 
 
-def phase_cli(k4: dict):
+def k4_launches_per_shape(q_blocks, n_dec, steps, batch=8, beams=5, prompt=3, frames=1500, d=1280):
+    """K4's launches per shape (M, K, N) in one int8 CLI run, as the code
+    implies them: per decode call, 2 per quantized block in
+    ``precompute_cross_kv`` (cross key, value) over batch × frames rows, and
+    8 per quantized block in every ``decoder_forward`` (self q/k/v/out and
+    cross q/out at (d, d), mlp1 at (d, 4d), mlp2 at (4d, d)), which runs once
+    for the prefill (batch × beams × prompt rows) and once per step (batch ×
+    beams rows)."""
+    counts = {(batch * frames, d, d): 2 * q_blocks * n_dec}
+    for rows, calls in ((batch * beams * prompt, n_dec), (batch * beams, steps)):
+        counts[(rows, d, d)] = 6 * q_blocks * calls
+        counts[(rows, d, 4 * d)] = q_blocks * calls
+        counts[(rows, 4 * d, d)] = q_blocks * calls
+    return counts
+
+
+def phase_cli(k4: dict, k4_shapes: list):
     """The int8 CLI at full large-v3 width with random weights, through the
-    port's own parser and orchestrator. The K4 count the code implies: per
-    decode call, 2 launches per quantized block in ``precompute_cross_kv``
-    (cross key, value) and 8 per quantized block in every
-    ``decoder_forward`` (self q/k/v/out, cross q/out, mlp1, mlp2), which
-    runs once for the prefill and once per step."""
+    port's own parser and orchestrator. K4's launches, counted per shape,
+    must be what ``k4_launches_per_shape`` derives from the code; with
+    ``k4_shapes`` (phase 3's time per shape), K4's device time per CLI run
+    against its floor, Σ launches × ms beside Σ launches × bound."""
+    import collections
+
     import torch
+
+    from whisperx_tpu_torch.ops import quant_matmul as qm
 
     from whisperx_tpu_torch import quant
     from whisperx_tpu_torch.__main__ import build_parser
@@ -914,12 +1011,21 @@ def phase_cli(k4: dict):
             return out
 
         quant.quantize_model = timed_quantize
+        # K4's launches by shape, counted around the wrapper
+        real_int8_matmul, by_shape = qm.int8_matmul, collections.Counter()
+
+        def counted(x, qw, scale, group_size):
+            by_shape[(x.shape[0], x.shape[1], qw.shape[1])] += 1
+            return real_int8_matmul(x, qw, scale, group_size)
+
+        qm.int8_matmul = counted
         t0 = time.perf_counter()
         try:
             pipe = transcribe_task(args, parser)
             torch.cuda.synchronize()
         finally:
             quant.quantize_model = real_quantize
+            qm.int8_matmul = real_int8_matmul
         wall = time.perf_counter() - t0
         assert len(quantize_s) == 1, quantize_s
         k4_launches, k1_launches = quant_matmul.launches, flash_attention.launches
@@ -941,6 +1047,8 @@ def phase_cli(k4: dict):
         steps = int(counters["decode_steps"])
         expected = len(q_blocks) * (2 * n_dec + 8 * (n_dec + steps))
         assert k4_launches == expected > 0, (k4_launches, expected, n_dec, steps)
+        per_shape = k4_launches_per_shape(len(q_blocks), n_dec, steps)
+        assert dict(by_shape) == per_shape and sum(per_shape.values()) == expected, (by_shape, per_shape)
         assert k1_launches == model.dims.n_audio_layer * n_dec > 0, (k1_launches, n_dec)
         k4["launches"] = k4_launches
 
@@ -966,6 +1074,21 @@ def phase_cli(k4: dict):
         f"batch slots); K4 launches {k4_launches} (= {len(q_blocks)} x (2 x {n_dec} + "
         f"8 x ({n_dec} + {steps}))); K1 launches {k1_launches}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
+    )
+
+    times = {(r["m"], r["k"], r["n"]): r for r in k4_shapes}
+    device_ms = floor_ms = 0.0
+    for shape, n_launch in sorted(per_shape.items()):
+        r = times[shape]
+        device_ms += n_launch * r["ms"]
+        floor_ms += n_launch * r["bound_ms"]
+        print(
+            f"[cli] K4 M={shape[0]} K={shape[1]} N={shape[2]} ({r['regime']}): {n_launch} launches "
+            f"x {r['ms']:.4f} ms = {n_launch * r['ms']:.3f} ms (bound {n_launch * r['bound_ms']:.3f} ms)"
+        )
+    print(
+        f"[cli] K4 per CLI run: sum of launches x ms {device_ms:.3f} ms against sum of launches x "
+        f"bound {floor_ms:.3f} ms ({device_ms / floor_ms:.1f}x its floor)"
     )
 
     # the beam step's self-KV reorder at this run's shape: every layer's
@@ -1080,7 +1203,11 @@ def main() -> int:
     name = phase_card()
     phase_build()
     k1, k1b, k2 = phase_kernels()
-    k4 = phase_k4()
+    k4, k4_shapes = phase_k4()
+    if sys.argv[1:] == ["--kernels"]:  # phases 1-3 of K1, K1b, K2 and K4 only
+        print(f"[done] {REPO}: kernel phases passed in {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"kernels": [k1, k1b, k2, k4], "k4_shapes": k4_shapes}))
+        return 0
     k3, k3kt, k3i8 = phase_k3()
     # the kernels with no caller in the package, counted over every path
     # below: each must stay at 0 (a path that reached one would show here)
@@ -1104,7 +1231,7 @@ def main() -> int:
     del pipe
     torch.cuda.empty_cache()
     phase_sequential()
-    model = phase_cli(k4)
+    model = phase_cli(k4, k4_shapes)
     phase_decode_profile(model, "profile int8", beam_size=5)
     del model
     torch.cuda.empty_cache()

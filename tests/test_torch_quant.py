@@ -259,3 +259,97 @@ def test_flatten_tree_lays_out_like_jax():
     for key in want:
         assert got[key].dtype == want[key].dtype, key
         np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+
+
+# K4's launch plan (``launch_plan``) at every shape the models give it: the
+# decoder linears (d, d), (d, 4d), (4d, d) of large-v3 and test-nano at the
+# rows of a greedy and a beam-5 step, the beam-5 prefill and the cross-KV
+# projection of 8 x 1500 frames
+_PLAN_SHAPES = [
+    (arch, m, k, n)
+    for arch, d in (("large-v3", 1280), ("test-nano", 64))
+    for m in (8, 40, 120, 12000)
+    for k, n in ((d, d), (d, 4 * d), (4 * d, d))
+    if m != 12000 or k == n
+]
+
+
+@pytest.mark.parametrize(
+    "arch,m,k,n", _PLAN_SHAPES, ids=[f"{a}-M{m}-K{k}-N{n}" for a, m, k, n in _PLAN_SHAPES]
+)
+def test_launch_plan_covers_k_in_whole_groups(arch, m, k, n):
+    """Split K for the decode and prefill rows, wgmma tiles for the cross-KV
+    product; every slice is a run of whole groups, the slices cover K
+    exactly, the grid fits CUDA's limits, and large-v3's decode steps give
+    at least two blocks per SM (132 SMs)."""
+    from whisperx_tpu_torch.ops.quant_matmul import SM_COUNT, launch_plan
+
+    group = 64
+    plan = launch_plan(m, k, n, group)
+    gx, gy = plan["grid"]
+    assert 1 <= gx <= 2**31 - 1 and 1 <= gy <= 65535
+    if m > 128:
+        assert plan["regime"] == "wgmma" and plan["slices"] == 1
+        assert gx * 128 >= n and gy * 128 >= m
+        return
+    assert plan["regime"] == "split_k" and gy == plan["slices"]
+    assert gx * 64 >= n > (gx - 1) * 64
+    ranges = plan["group_ranges"]
+    assert len(ranges) == plan["slices"] and ranges[0][0] == 0 and ranges[-1][1] * group == k
+    assert all(a < b for a, b in ranges)  # no slice is empty
+    assert all(ranges[i][1] == ranges[i + 1][0] for i in range(len(ranges) - 1))
+    if arch == "large-v3" and m in (8, 40):
+        assert gx * gy >= 2 * SM_COUNT
+
+
+@pytest.mark.parametrize(
+    "m,k,n,group,regime",
+    [(40, 1280, 1280, 32, "tiled"), (40, 1280, 100, 64, "tiled"), (40, 1280, 1280, 128, "split_k"),
+     (12000, 1280, 1280, 128, "wgmma")],
+)
+def test_launch_plan_sends_other_groups_and_ragged_n_to_the_tiled_path(m, k, n, group, regime):
+    from whisperx_tpu_torch.ops.quant_matmul import launch_plan
+
+    plan = launch_plan(m, k, n, group)
+    assert plan["regime"] == regime
+    assert launch_plan(m, k, n, group, torch.float32)["regime"] == "f32"
+    assert launch_plan(m, k, 128, 64, aligned=False)["regime"] == "tiled"
+
+
+def _split_k_emulation(x, qw, scale, group, plan):
+    """The split-K kernel's order of sums in plain torch: each slice adds
+    its groups' scaled f32 partials from zero, then the slices are added in
+    slice order and the sum is cast once."""
+    xf = x.float()
+    total = None
+    for g0, g1 in plan["group_ranges"]:
+        acc = torch.zeros((x.shape[0], qw.shape[1]))
+        for g in range(g0, g1):
+            rows = slice(g * group, (g + 1) * group)
+            acc = acc + torch.matmul(xf[:, rows], qw[rows].float()) * scale[g]
+        total = acc if total is None else total + acc
+    return total.to(x.dtype)
+
+
+@pytest.mark.parametrize("m,k", [(5, 256), (40, 640)])
+def test_split_k_order_matches_reference_and_pallas(m, k):
+    """The split-K order of sums stays within one bf16 ulp of the output
+    (2⁻⁷·max|ref|, the tolerance ``chip_smoke.py`` holds K4 to) of the
+    plain version and of the Pallas kernel in interpret mode."""
+    from whisperx_tpu_torch.ops.quant_matmul import launch_plan
+
+    rng = np.random.default_rng(m)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    w = _weights(k, k, 128)
+    jq, tq = jax_make_ql(w, "int8", 64), make_quantized_linear(w, "int8", 64)
+    plan = launch_plan(m, k, 128, 64)
+    assert plan["regime"] == "split_k" and plan["slices"] == k // 64  # one group a slice
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    got = _split_k_emulation(xt, tq.qw, tq.scale, 64, plan).float().numpy()
+    ref = _quant_matmul_reference(xt, tq.qw, tq.scale, 64).float().numpy()
+    pallas = np.asarray(
+        _quant_matmul_pallas_int8(jnp.asarray(x, jnp.bfloat16), jq.qw, jq.scale, 64, interpret=True)
+        .astype(jnp.float32)
+    )
+    for want in (ref, pallas):
+        np.testing.assert_allclose(got, want, rtol=0, atol=BF16_EPS * np.abs(want).max())

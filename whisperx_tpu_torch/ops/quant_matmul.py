@@ -13,8 +13,10 @@ the XLA path's arithmetic (``_quant_matmul_xla`` dequantizes the weight and
 rounds it to x's dtype first): in bf16 the two differ by that weight
 rounding.
 
-A CUDA tensor with int8 weights always launches K4 (``quant_matmul.launches``
-counts the launches) or raises; a CPU tensor takes
+``launch_plan`` picks K4's regime from the shapes: split K for the decode's
+skinny products, wgmma tiles for large M (the cross-KV product), a plain
+tiled path for other group sizes. A CUDA tensor with int8 weights always
+launches K4 (``quant_matmul.launches`` counts the calls) or raises; a CPU tensor takes
 ``_quant_matmul_reference``. Nothing on the CUDA path calls the plain
 version. int4 has no kernel in the JAX package either: both packages
 dequantize and take one matrix product (``_quant_matmul_xla``), on any
@@ -32,6 +34,40 @@ from whisperx_tpu_torch.utils.precision import reference_matmul
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_M_TILES = 65535  # gridDim.y of the launch, 64 rows each
 _TILE_M = 64
+
+SM_COUNT = 132  # H100 SXM: split K until the grid covers every SM twice
+SPLITK_MAX_M = 128  # larger M takes the wgmma tiles
+_SPLITK_TILE_N = 64
+_WGMMA_TILE = 128  # wgmma regime: 128 x 128 outputs per block
+_REGIMES = {"tiled": 0, "split_k": 1, "wgmma": 2, "f32": 0}  # the C entry's codes
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def launch_plan(m: int, k: int, n: int, group_size: int, dtype=torch.bfloat16,
+                aligned: bool = True) -> dict:
+    """K4's launch for x [m, k] @ qw [k, n] (``csrc/quant_matmul.cu``): the
+    regime, the grid and, for split K, the slices as group ranges.
+
+    bf16 with groups of a multiple of 64, n a multiple of 16 and a 16-byte
+    aligned weight (``aligned``) takes split K when m <= 128 (the decode
+    and prefill: bytes bound it, so the grid needs 2 blocks per SM) and the
+    wgmma tiles above (the cross-KV product: operations bound it); any
+    other bf16 shape the plain tiled path, f32 its CUDA-core kernel."""
+    if dtype == torch.float32:
+        return {"regime": "f32", "grid": (_cdiv(n, 64), _cdiv(m, 64)), "slices": 1}
+    if not (group_size % 64 == 0 and n % 16 == 0 and aligned):
+        return {"regime": "tiled", "grid": (_cdiv(n, _TILE_M), _cdiv(m, _TILE_M)), "slices": 1}
+    if m > SPLITK_MAX_M:
+        return {"regime": "wgmma", "grid": (_cdiv(n, _WGMMA_TILE), _cdiv(m, _WGMMA_TILE)), "slices": 1}
+    tiles = _cdiv(n, _SPLITK_TILE_N)
+    groups = k // group_size
+    slices = min(groups, _cdiv(2 * SM_COUNT, tiles))
+    # the kernel's own split: slice s takes groups [s·G/S, (s+1)·G/S)
+    ranges = [(s * groups // slices, (s + 1) * groups // slices) for s in range(slices)]
+    return {"regime": "split_k", "grid": (tiles, slices), "slices": slices, "group_ranges": ranges}
 
 
 @reference_matmul()
@@ -85,7 +121,7 @@ def _kernel_library() -> ctypes.CDLL:
     lib = _build.load("quant_matmul")
     fn = lib.int8_matmul
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2
         fn.restype = ctypes.c_int
     return lib
 
@@ -103,12 +139,18 @@ def int8_matmul(
     n = qw.shape[1]
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     # 16-byte weight loads when every row of a 64-column tile is whole
-    vec = int(n % 16 == 0 and qw.data_ptr() % 16 == 0)
+    vec = n % 16 == 0 and qw.data_ptr() % 16 == 0
+    plan = launch_plan(m, k, n, group_size, x.dtype, aligned=vec)
+    slices = plan["slices"]
+    # split K: each slice's f32 sum, added in slice order by the kernel
+    ws = torch.empty((slices, m, n), dtype=torch.float32, device=x.device) if slices > 1 else None
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.int8_matmul(
             x.data_ptr(), qw.data_ptr(), scale.data_ptr(), out.data_ptr(),
-            m, n, k, group_size, _DTYPE_CODES[x.dtype], vec, stream,
+            m, n, k, group_size, _DTYPE_CODES[x.dtype], int(vec),
+            _REGIMES[plan["regime"]], slices,
+            None if ws is None else ws.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"int8_matmul launch failed: cudaError {err}")
