@@ -14,8 +14,9 @@ Phases, each of which passes or raises (the script then exits non-zero):
      never used by the port), and the bound for the same work: K1, K1b and
      K2 (``flash_attention.cu``), K4 (``quant_matmul.cu``, at every shape
      of the int8 CLI path), K3, K3kt and K3i8
-     (``cross_attention_decode.cu``); each K1, K1b, K2 and K4 case is called
-     twice and must give the same bits;
+     (``cross_attention_decode.cu``, at the decode step of batch 8 and of
+     batch 1, both timed, and at three other shapes); every case of every
+     kernel is called twice and must give the same bits;
   4. main path: ``whisperx_tpu_torch.load_model("large-v3", ...)`` at full
      width with random weights, ``.transcribe`` of ~120 s of synthetic
      speech; the kernel launch counts are reset just before and read just
@@ -52,10 +53,10 @@ package beside this file, it exits non-zero and prints no result.
 
     python3 chip_smoke.py --kernels
 
-runs phases 1-3 for K1, K1b, K2 and K4 only (their checks, determinism and
-per-shape times) and prints their entries. Copied into a checkout of
-another commit, it times that commit's kernels the same way: run both in
-one call to compare two versions on one card.
+runs phases 1-3 only: every kernel's checks, determinism and per-shape
+times (K1, K1b, K2, K4, K3, K3kt, K3i8), and prints their entries. Copied
+into a checkout of another commit, it times that commit's kernels the same
+way: run both in one call to compare two versions on one card.
 """
 
 from __future__ import annotations
@@ -382,21 +383,33 @@ def cross_decode_case(b, t, h, dh, seed=0):
     return qs, k8, v8, qs8, sq, q32
 
 
-def phase_k3() -> list:
-    """K3, K3kt and K3i8 against their plain versions at the large-v3 decode
-    step (B 8, T 1500, H 20, Dh 64) and at B 1, T 300 (a tile that
-    overhangs), and test-nano's head size (H 2, Dh 32). Tolerance: atol
-    1e-2 (|out| ≲ 120). The kernel walks the plain version's 512-key tiles
-    in order, so only f32 sum orders differ, which moves the outputs by
-    ~1e-4. A kernel that left out the bf16 rounding of the query or of P
-    would be off by ~0.05 to 0.4: the control (the plain version on the
-    unrounded f32 query) must fail the same tolerance. Timed at
-    the decode step with 4 copies of K/V cycled (123 MB, past the 50 MB L2:
-    a decode step reads 32 layers' K/V, each once). Yardstick: one
-    ``scaled_dot_product_attention`` on K/V widened to bf16 beforehand."""
+# K3's shapes: (B, T, H, Dh). The large-v3 decode step at the pipeline's
+# batch of 8 and at B 1 (timed); a tile that overhangs; test-nano's head
+# size; past 8 tiles (blocks walk two whole tiles) with T % 4 != 0 (K3kt's
+# rows then start at any byte)
+K3_SHAPES = ((8, 1500, 20, 64), (1, 1500, 20, 64), (1, 300, 20, 64), (2, 1500, 2, 32),
+             (1, 4999, 4, 64))
+K3_TIMED = ((8, 1500), (1, 1500))
+
+
+def phase_k3():
+    """K3, K3kt and K3i8 against their plain versions at K3_SHAPES.
+    Tolerance: atol 1e-2 (|out| ≲ 120). The kernel rounds P against the
+    plain version's running max of each 512-key tile, so only f32 sum
+    orders differ, which moves the outputs by ~1e-4. A kernel that left
+    out the bf16 rounding of the query or of P would be off by ~0.05 to
+    0.4: the control (the plain version on the unrounded f32 query) must
+    fail the same tolerance. Every case is called twice and must give the
+    same bits. Timed at K3_TIMED with enough copies of K/V cycled to pass
+    the 50 MB L2 (a decode step reads 32 layers' K/V, each once).
+    Yardstick: one ``scaled_dot_product_attention`` on K/V widened to bf16
+    beforehand. Returns the kernels-line entries (B 8) and one record per
+    timed shape. Uses only functions that every version of the port has,
+    so a copy of this script times an older commit's kernel the same way."""
     import torch
     import torch.nn.functional as F
 
+    from whisperx_tpu_torch.ops import cross_attention_decode as cad
     from whisperx_tpu_torch.ops.cross_attention_decode import (
         _cross_decode_reference,
         cross_decode,
@@ -415,9 +428,12 @@ def phase_k3() -> list:
         ),
         "K3i8": (cross_decode_i8, 232, lambda qs, k8, v8, qs8, sq, q32: (qs8, sq, k8, v8), None),
     }
-    entries = []
-    for b, t, h, dh in ((8, 1500, 20, 64), (1, 300, 20, 64), (2, 1500, 2, 32)):
+    entries, shapes = [], []
+    for b, t, h, dh in K3_SHAPES:
         case = cross_decode_case(b, t, h, dh, seed=t + b)
+        plan = getattr(cad, "launch_plan", None)
+        if plan is not None:
+            print(f"[kernels] K3 B={b} T={t} H={h} Dh={dh}: launch plan {plan(b, t, h, dh)}")
         for name, (fn, line, args_of, ref_kw) in variants.items():
             args = args_of(*case)
             out = fn(*args)
@@ -435,6 +451,7 @@ def phase_k3() -> list:
             )
             if not ok:
                 raise AssertionError(f"{name} B={b} T={t}: max_abs_err {err} > {tol}")
+            same_bits(f"{name} B={b} T={t} H={h} Dh={dh}", out, fn(*args))
             if name == "K3":
                 control = _cross_decode_reference(spread_queries(case[5], h), case[1], case[2])
                 c_err = (out - control).abs().max().item()
@@ -446,7 +463,7 @@ def phase_k3() -> list:
                 if not c_err > tol:
                     raise AssertionError(f"K3 control {c_err} within {tol}: the check cannot tell")
                 del control
-            if (b, t) != (8, 1500):
+            if (b, t) not in K3_TIMED:
                 continue
             kv_bytes = 2 * b * t * h * dh
             copies = math.ceil(2 * L2_BYTES / kv_bytes)
@@ -486,16 +503,20 @@ def phase_k3() -> list:
                 moved, 4 * b * t * h * dh, peak, library_ms,
             )
             print(
-                f"[kernels] {name} timing ({copies} K/V copies cycled): kernel {ms:.4f} ms, "
-                f"plain {plain_ms:.4f} ms, sdpa on bf16 K/V {library_ms:.4f} ms, "
+                f"[kernels] {name} B={b} T={t} timing ({copies} K/V copies cycled): kernel "
+                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa on bf16 K/V {library_ms:.4f} ms, "
                 f"bound {e['bound_ms']:.4f} ms by {e['bound_by']} "
                 f"({moved / 1e6:.4f} MB moved, {kv_bytes / 1e6:.2f} MB of it int8 K/V)"
             )
-            entries.append(e)
+            shapes.append({"name": name, "b": b, "t": t, "h": h, "dh": dh, "ms": ms,
+                           "plain_ms": plain_ms, "bound_ms": e["bound_ms"],
+                           "library_ms": library_ms, "max_abs_err": err})
+            if b == 8:
+                entries.append(e)
             del sets, widened
         del case
     torch.cuda.empty_cache()
-    return entries
+    return entries, shapes
 
 
 def quant_case(m, k, n, dtype, group_size=64, seed=0):
@@ -1204,11 +1225,12 @@ def main() -> int:
     phase_build()
     k1, k1b, k2 = phase_kernels()
     k4, k4_shapes = phase_k4()
-    if sys.argv[1:] == ["--kernels"]:  # phases 1-3 of K1, K1b, K2 and K4 only
+    (k3, k3kt, k3i8), k3_shapes = phase_k3()
+    if sys.argv[1:] == ["--kernels"]:  # phases 1-3 only
         print(f"[done] {REPO}: kernel phases passed in {time.perf_counter() - t_start:.1f} s")
-        print(json.dumps({"kernels": [k1, k1b, k2, k4], "k4_shapes": k4_shapes}))
+        print(json.dumps({"kernels": [k1, k1b, k2, k3, k3kt, k3i8, k4],
+                          "k4_shapes": k4_shapes, "k3_shapes": k3_shapes}))
         return 0
-    k3, k3kt, k3i8 = phase_k3()
     # the kernels with no caller in the package, counted over every path
     # below: each must stay at 0 (a path that reached one would show here)
     from whisperx_tpu_torch.ops.cross_attention_decode import cross_decode_i8, cross_decode_kt

@@ -98,6 +98,170 @@ def test_k3i8_plain_matches_pallas(t, h, dh):
     np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
+@pytest.mark.parametrize(
+    "t,split,cluster,tiles_per_block",
+    [(1, 64, 1, 1), (256, 64, 4, 1), (300, 64, 5, 1), (512, 64, 8, 1), (513, 128, 5, 1),
+     (1000, 128, 8, 1), (1500, 256, 6, 1), (2048, 256, 8, 1), (2049, 512, 5, 1),
+     (4096, 512, 8, 1), (4097, 512, 5, 2), (4999, 512, 5, 2), (100_000, 512, 8, 25)],
+)
+def test_launch_plan_splits_t_inside_tiles(t, split, cluster, tiles_per_block):
+    """Every block of a cluster owns whole sub-splits that never straddle a
+    512-key tile, the blocks cover T exactly in order, none is empty, a
+    cluster has at most 8 blocks, and past 8 tiles a block walks whole
+    tiles."""
+    plan = tx.launch_plan(2, t, 4, 64)
+    assert (plan["split"], plan["cluster"], plan["tiles_per_block"]) == (split, cluster, tiles_per_block)
+    assert plan["cluster"] <= tx.MAX_CLUSTER and tx.TILE % plan["split"] == 0
+    assert plan["splits_per_tile"] == tx.TILE // plan["split"]
+    assert plan["tiles_per_block"] == 1 or plan["split"] == tx.TILE
+    keys = plan["split"] * plan["tiles_per_block"]  # a block's keys
+    blocks = [(r * keys, min(t, (r + 1) * keys)) for r in range(plan["cluster"])]
+    assert blocks[-1][1] == t and all(a < e for a, e in blocks)
+    for a, e in blocks:
+        for c0 in range(a, e, plan["split"]):
+            c1 = min(e, c0 + plan["split"])
+            assert c0 // tx.TILE == (c1 - 1) // tx.TILE  # inside one tile
+    assert plan["grid"] == (plan["cluster"] * 4, 2)
+    assert plan["smem_bytes"] <= tx.MAX_SMEM
+
+
+@pytest.mark.parametrize("b,blocks", [(8, 960), (1, 120)])
+def test_launch_plan_at_the_large_v3_decode_step(b, blocks):
+    """B 8 (the pipeline's batch) and B 1, T 1500, H 20, Dh 64: sub-splits
+    of 256 keys, 6 a cluster; the old grid (H, B) had 160 and 20 blocks on
+    132 SMs. K3kt's slots hold 80-byte rows of transposed K."""
+    plan = tx.launch_plan(b, 1500, 20, 64)
+    gx, gy = plan["grid"]
+    assert (plan["split"], plan["splits_per_tile"], plan["cluster"]) == (256, 2, 6)
+    assert gx * gy == blocks and gy == b
+    kt = tx.launch_plan(b, 1500, 20, 64, k_transposed=True)
+    # 4 slots of 64 keys (K, then V), the scores, one tile's max
+    assert plan["smem_bytes"] == 4 * 64 * 64 + 4 * 256 + 4
+    assert kt["smem_bytes"] - plan["smem_bytes"] == 4 * 64 * (tx.KT_ROW - 64)
+
+
+def _select_heads(out_all, h):
+    """[B, H, D] → [B, 1, D]: each column from the head that owns it."""
+    d = out_all.shape[-1]
+    sel = (torch.arange(d) // (d // h))[None, :] == torch.arange(h)[:, None]
+    return torch.where(sel, out_all, 0.0).sum(dim=1, keepdim=True)
+
+
+def _scores(qs, k, sq, k_transposed, t0, t1):
+    kb = k[:, :, t0:t1] if k_transposed else k[:, t0:t1].transpose(1, 2)
+    if sq is None:
+        return torch.matmul(qs.float(), kb.float())
+    return torch.matmul(qs.double(), kb.double()).float() * sq
+
+
+def _cluster_split_emulation(qs, k, v, *, sq=None, k_transposed=False):
+    """The CUDA kernel's order in plain torch, by ``launch_plan``: each
+    sub-split's scores and max; every sub-split rounds P against the TPU's
+    running max after its tile (the maxima the cluster shares); each block
+    sums p unrounded into l and bf16(p)·V into acc (a block of whole tiles
+    with the TPU's α between them); then each tile's blocks are summed in
+    rank order and the TPU's recurrence runs over the tiles in order."""
+    b, h, d = qs.shape
+    t = k.shape[2] if k_transposed else k.shape[1]
+    plan = tx.launch_plan(b, t, h, d // h, k_transposed)
+    split, tpb = plan["split"], plan["tiles_per_block"]
+    chunks = [(a, min(t, a + split)) for a in range(0, t, split)]
+    s = [_scores(qs, k, sq, k_transposed, a, e) for a, e in chunks]
+    tile = [a // tx.TILE for a, _ in chunks]
+    running, m = [], torch.full((b, h, 1), float("-inf"))
+    for j in range(tile[-1] + 1):
+        for c in range(len(chunks)):
+            if tile[c] == j:
+                m = torch.maximum(m, s[c].amax(dim=-1, keepdim=True))
+        running.append(m)
+    blocks = []  # (tile of its last chunk, running max there, l, acc)
+    for r in range(plan["cluster"]):
+        l, acc = torch.zeros((b, h, 1)), torch.zeros((b, h, d))
+        m_prev = torch.full((b, h, 1), float("-inf"))
+        for c in range(r * tpb, min((r + 1) * tpb, len(chunks))):
+            m = running[tile[c]]
+            alpha = torch.exp(m_prev - m)
+            p = torch.exp(s[c] - m)
+            a, e = chunks[c]
+            l = l * alpha + p.sum(dim=-1, keepdim=True)
+            acc = acc * alpha + torch.matmul(p.to(torch.bfloat16).float(), v[:, a:e].float())
+            m_prev = m
+        blocks.append((tile[c], m_prev, l, acc))
+    l, acc = torch.zeros((b, h, 1)), torch.zeros((b, h, d))
+    m = torch.full((b, h, 1), float("-inf"))
+    for j in sorted({blk[0] for blk in blocks}):
+        group = [blk for blk in blocks if blk[0] == j]
+        gl, ga = group[0][2], group[0][3]
+        for blk in group[1:]:
+            gl, ga = gl + blk[2], ga + blk[3]
+        alpha = torch.exp(m - group[0][1])
+        l, acc, m = l * alpha + gl, acc * alpha + ga, group[0][1]
+    return _select_heads(acc / torch.clamp(l, min=1e-20), h)
+
+
+def _free_split_emulation(qs, k, v, split):
+    """The usual flash-decode split: each run of ``split`` keys rounds P
+    against its own max; the splits are merged at the end."""
+    t = k.shape[1]
+    ms, ls, accs = [], [], []
+    for a in range(0, t, split):
+        s = _scores(qs, k, None, False, a, min(t, a + split))
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - m)
+        ms.append(m)
+        ls.append(p.sum(dim=-1, keepdim=True))
+        accs.append(torch.matmul(p.to(torch.bfloat16).float(), v[:, a : a + split].float()))
+    top = torch.stack(ms).amax(dim=0)
+    l = sum(torch.exp(m - top) * x for m, x in zip(ms, ls))
+    acc = sum(torch.exp(m - top) * x for m, x in zip(ms, accs))
+    return _select_heads(acc / torch.clamp(l, min=1e-20), qs.shape[1])
+
+
+def _pallas(mode, qs, k8, v8, qs8, sq):
+    if mode == "K3i8":
+        return jx._cross_decode_pallas_i8(*map(jnp.asarray, (qs8, sq, k8, v8)), interpret=True)
+    q = jnp.asarray(qs, jnp.bfloat16)
+    if mode == "K3kt":
+        return jx._cross_decode_pallas_kt(q, jnp.asarray(k8), jnp.asarray(v8), interpret=True)
+    return jx._cross_decode_pallas(q, jnp.asarray(k8), jnp.asarray(v8), interpret=True)
+
+
+@pytest.mark.parametrize("mode", ["K3", "K3kt", "K3i8"])
+@pytest.mark.parametrize("t,h,dh", CASES + [(1000, 2, 32), (4999, 2, 64)])
+def test_cluster_split_emulation_matches_plain_and_pallas(mode, t, h, dh):
+    """The kernel's order of sums (sub-splits sharing the TPU's running max,
+    tiles combined in order; at T 4999 blocks of two whole tiles) stays
+    within the plain versions' TOL of the plain version and of the Pallas
+    function in interpret mode."""
+    qs, k8, v8, qs8, sq = _inputs(2, t, h, dh, seed=t + h + dh + 3)
+    if mode == "K3kt":
+        k8 = np.ascontiguousarray(k8.transpose(0, 2, 1))
+    qt, kt, vt = torch.from_numpy(qs).to(torch.bfloat16), torch.from_numpy(k8), torch.from_numpy(v8)
+    kw = {"k_transposed": mode == "K3kt"}
+    if mode == "K3i8":
+        qt, kw = torch.from_numpy(qs8), {"sq": torch.from_numpy(sq)}
+    got = _cluster_split_emulation(qt, kt, vt, **kw).numpy()
+    np.testing.assert_allclose(got, tx._cross_decode_reference(qt, kt, vt, **kw).numpy(), **TOL)
+    np.testing.assert_allclose(got, np.asarray(_pallas(mode, qs, k8, v8, qs8, sq)), **TOL)
+
+
+@pytest.mark.parametrize("split", [512, 384, 256, 128])
+def test_a_free_split_misses_the_chip_tolerance(split):
+    """Why the cluster shares its maxima: with ``chip_smoke.py``'s inputs
+    (q = 0.005·N(0, 1) in bf16, int8 K and V uniform in ±127), a split whose
+    blocks round P against their own max falls outside the 1e-2 that the
+    chip holds K3 to, where the kernel's order stays inside TOL."""
+    rng = np.random.default_rng(0)
+    b, t, h, dh = 2, 1500, 4, 64
+    q = torch.from_numpy((0.005 * rng.standard_normal((b, h * dh))).astype(np.float32))
+    qs = tx.spread_queries(q.to(torch.bfloat16), h)
+    k8, v8 = (torch.from_numpy(rng.integers(-127, 128, (b, t, h * dh)).astype(np.int8))
+              for _ in range(2))
+    ref = tx._cross_decode_reference(qs, k8, v8).numpy()
+    np.testing.assert_allclose(_cluster_split_emulation(qs, k8, v8).numpy(), ref, **TOL)
+    assert np.abs(_free_split_emulation(qs, k8, v8, split).numpy() - ref).max() > 1e-2
+
+
 def test_k3i8_scores_are_exact_integers():
     """The int8 × int8 scores of the plain version are the exact integer
     dot (here the TPU's int32 sum), so K3i8 differs from K3 run on the

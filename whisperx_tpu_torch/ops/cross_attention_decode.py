@@ -22,6 +22,10 @@ other columns add exact zeros).
 A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
 version. ``cross_attention_decode`` (the decoder's op) passes the packed
 query to the kernel directly, without building the [B, H, D] spread.
+
+``launch_plan`` splits T across a thread-block cluster per (b, h): it picks
+the keys of each block's sub-split and the cluster size, which the kernel
+takes at run time.
 """
 
 from __future__ import annotations
@@ -36,6 +40,46 @@ from whisperx_tpu_torch.utils.precision import reference_matmul
 
 TILE = 512  # the TPU kernels' T tile (``bt``); the CUDA kernel walks the same
 _HEAD_DIMS = (32, 64)
+MAX_CLUSTER = 8  # blocks of a cluster: the portable size
+SPLITS = (64, 128, 256, TILE)  # keys of a block's sub-split: each divides the tile
+PIECE = 64  # keys of a shared-memory slot: K's, then the same keys' V
+KT_ROW = 80  # K3kt: bytes of each of a slot's Dh rows of K (64 keys and alignment)
+MAX_SMEM = 227 * 1024  # dynamic shared memory a block may use (H100)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def launch_plan(b: int, t: int, h: int, dh: int, k_transposed: bool = False) -> dict:
+    """The CUDA kernel's split of T for B rows, T keys, H heads of Dh.
+
+    One cluster of ``cluster`` blocks per (b, h), grid (cluster · H, B). Each
+    block owns a sub-split of ``split`` keys: the smallest of ``SPLITS``
+    that needs at most ``MAX_CLUSTER`` blocks, so that the grid spreads
+    over as many SMs as T allows (B 8, T 1500, H 20: 256 keys, 6 blocks a
+    cluster, 960 blocks; B 1: 120). A split divides the 512-key tile, so no
+    sub-split straddles a tile boundary. Past 8 · 512 keys each block walks
+    ``tiles_per_block`` whole tiles in order. ``smem_bytes``: the block's
+    dynamic shared memory (a slot of 64 keys for each piece of the
+    sub-split, which holds K and then V, the scores, a max per tile)."""
+    for split in SPLITS:
+        if _cdiv(t, split) <= MAX_CLUSTER:
+            tiles_per_block, cluster = 1, _cdiv(t, split)
+            break
+    else:
+        tiles = _cdiv(t, TILE)
+        tiles_per_block = _cdiv(tiles, MAX_CLUSTER)
+        cluster = _cdiv(tiles, tiles_per_block)
+    slot = dh * KT_ROW if k_transposed else PIECE * dh
+    return {
+        "split": split,
+        "splits_per_tile": TILE // split,
+        "tiles_per_block": tiles_per_block,
+        "cluster": cluster,
+        "grid": (cluster * h, b),
+        "smem_bytes": split // PIECE * slot + 4 * split + 4 * tiles_per_block,
+    }
 
 
 def use_cross_decode_kernel(device: torch.device) -> bool:
@@ -134,7 +178,7 @@ def _kernel_library() -> ctypes.CDLL:
             [ctypes.c_void_p] * 5
             + [ctypes.c_int] * 4
             + [ctypes.c_longlong] * 2
-            + [ctypes.c_int] * 2
+            + [ctypes.c_int] * 5
             + [ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
@@ -146,6 +190,9 @@ def _launch(q, k, v, *, n_head, q_strides, sq=None, k_transposed=False, bt=TILE)
     q_int8 = sq is not None
     _check_operands(q, k, v, n_head=n_head, k_transposed=k_transposed, q_int8=q_int8, bt=bt)
     b, t, d = v.shape
+    plan = launch_plan(b, t, n_head, d // n_head, k_transposed)
+    if plan["smem_bytes"] > MAX_SMEM:
+        raise ValueError(f"cross_attention_decode: T={t} needs more shared memory than a block has")
     if q_int8:
         sq = sq.reshape(b, n_head).to(torch.float32).contiguous()
     lib = _kernel_library()
@@ -155,7 +202,8 @@ def _launch(q, k, v, *, n_head, q_strides, sq=None, k_transposed=False, bt=TILE)
         err = lib.cross_attention_decode(
             q.data_ptr(), sq.data_ptr() if q_int8 else None, k.data_ptr(),
             v.data_ptr(), out.data_ptr(), b, t, n_head, d // n_head,
-            q_strides[0], q_strides[1], int(k_transposed), int(q_int8), stream,
+            q_strides[0], q_strides[1], int(k_transposed), int(q_int8),
+            plan["split"], plan["tiles_per_block"], plan["cluster"], stream,
         )
     if err != 0:
         raise RuntimeError(f"cross_attention_decode launch failed: cudaError {err}")
