@@ -32,11 +32,27 @@ Phases, each of which passes or raises (the script then exits non-zero):
      pipeline with the opt-in: one result per request, segments inside
      their own audio, K3 launched n_text_layer × the sampled steps, K1
      32 × the encoder passes;
+  4b. word timing: the main path's pipeline with ``word_timestamps=True``
+     (greedy) over the same 120 s: the ``word_timing`` stage, peak memory,
+     and K1 launched 32 × the decodes + 32 × the teacher-forced captures;
+  4c. alignment: wav2vec2 BASE_CONFIG (12 layers, d 768) with weights from a
+     seeded ``torch.Generator``, written with the port's ``save_checkpoint``
+     into a temporary ``WHISPERX_TPU_ALIGN_DIR`` and loaded through
+     ``load_align_model``, aligns the main path's segments over its audio:
+     emission time per bucket (CUDA events), trellis and backtrack host
+     time, the stage's wall time, words inside their segments with
+     monotone starts; CUDA against CPU emissions on one segment (TF32 off,
+     as the aligner always runs; tolerance EMISSION_TOL) and the same words
+     once both are given the CPU emissions;
   5c. sequential path: ``load_model("large-v3", vad_method="none")``, the
-     seek loop over ~40 s; K1 launched 32 × the window decodes;
+     seek loop over ~40 s; K1 launched 32 × the window decodes; then the
+     seek loop with ``word_timestamps=True`` and
+     ``hallucination_silence_threshold=2.0`` (greedy, SEQ_WORDS_SAMPLE_LEN
+     tokens a window): K1 32 × (decodes + captures);
   6. CLI path: ``python -m whisperx_tpu_torch clip.wav --model large-v3
-     --compute_type int8 --vad_method energy --language en --no_align -f all``
-     (beam 5, the CLI default, at one temperature), driven in-process through
+     --compute_type int8 --vad_method energy --language en -f all
+     --highlight_words True`` (beam 5, the CLI default, at one temperature;
+     alignment on, with phase 4c's checkpoint), driven in-process through
      ``build_parser`` and ``transcribe_task`` so that the launch counts can be
      read: every int8 decoder linear must have gone through K4, as often
      per shape as the code implies; K4's device time per CLI run (Σ
@@ -44,8 +60,10 @@ Phases, each of which passes or raises (the script then exits non-zero):
      the decode profile of phase 5 for that int8 model with 5 beams;
   7. small model: f32 ``test-nano`` through the same pipeline on CUDA and on
      the CPU with the same weights; segments and greedy tokens must match,
-     and the seek loop's segments and tokens too; then quantized to int8,
-     its greedy and beam-2 tokens must match too.
+     and the seek loop's segments and tokens too, and the words of word
+     timing (text, start, end); ``WHISPERX_TPU_FLASH=0`` raises on CUDA;
+     then quantized to int8, its greedy and beam-2 tokens must match too,
+     and ``WHISPERX_TPU_NO_PALLAS_QUANT`` raises on CUDA.
 
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA GPU, or without the
@@ -96,6 +114,15 @@ SHORT_LADDER = (0.0, 0.2)
 # query's bf16 rounding and where P is rounded (by ~0.035 on large-v3's
 # random bf16 weights); a wrong tile max or a lost tile moves them by more
 STEP_LOGIT_TOL = 0.1
+# wav2vec2 base log-probs, CUDA against the CPU, both in full f32 (the
+# aligner turns TF32 off for its products and cuDNN's convolutions): only
+# the order of f32 sums differs, ~1e-5 after 12 layers; TF32 would give ~1e-3
+EMISSION_TOL = 1e-3
+SEQ_WORDS_SAMPLE_LEN = 48  # tokens a window, for the seek loop with words
+# an aligned char ends one emission frame (duration / (frames - 1) s, ~0.02)
+# after its last frame, so an aligned segment may end that much after its
+# transcript segment, and after the audio, as in JAX
+ALIGN_END_SLACK_S = 0.05
 
 
 def synth_speech(duration_s: float, sr: int = 16000, seed: int = 0):
@@ -658,7 +685,8 @@ def phase_k4():
 
 def phase_main_path(k1: dict):
     """large-v3 at full width, batch 8, through the user's entry points;
-    returns the model for the decode profile."""
+    returns the pipeline (for the later phases) and the transcript (for
+    the alignment phase)."""
     import torch
 
     import whisperx_tpu_torch
@@ -712,7 +740,252 @@ def phase_main_path(k1: dict):
         f"batch fill {counters.get('batch_used', 0):.0f}/{counters.get('batch_slots', 0):.0f}; "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
     )
-    return pipe
+    return pipe, result
+
+
+class count_captures:
+    """Inside: each teacher-forced capture of word timing is counted, with
+    the K1 launches made inside it."""
+
+    def __enter__(self):
+        from whisperx_tpu_torch import timing
+        from whisperx_tpu_torch.ops.flash_attention import flash_attention
+
+        self.timing, self.real = timing, timing._capture_cross_qk
+        self.calls, self.k1, self.rows = 0, 0, []
+
+        def counted(model, tokens, mels, eot):
+            before = flash_attention.launches
+            out = self.real(model, tokens, mels, eot)
+            self.calls += 1
+            self.k1 += flash_attention.launches - before
+            self.rows.append(tuple(tokens.shape))
+            return out
+
+        timing._capture_cross_qk = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.timing._capture_cross_qk = self.real
+
+
+def phase_word_timing(pipe) -> None:
+    """The main path's pipeline and audio with ``word_timestamps=True``,
+    greedy (one temperature: random weights fail every gate, and the ladder
+    is the main path's cost, not word timing's). Words come from one
+    teacher-forced capture per group of 8 windows (``WHISPERX_TPU_ALIGN_BATCH``);
+    random weights never emit EOT, so each window has ~224 tokens."""
+    import torch
+
+    from whisperx_tpu_torch.ops.flash_attention import flash_attention
+    from whisperx_tpu_torch.utils.metrics import GLOBAL_TRACKER
+
+    audio = synth_speech(MAIN_AUDIO_S, seed=1)
+    GLOBAL_TRACKER.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = 0
+    with count_captures() as cap:
+        t0 = time.perf_counter()
+        result = pipe.transcribe(audio, language="en", word_timestamps=True, temperatures=(0.0,))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = flash_attention.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    report = GLOBAL_TRACKER.report()
+    n_layer = pipe.model.dims.n_audio_layer
+    n_dec = report["decode"]["calls"]
+    assert cap.calls >= 1 and cap.k1 == n_layer * cap.calls, (cap.k1, cap.calls)
+    assert launches == n_layer * (n_dec + cap.calls), (launches, n_dec, cap.calls)
+    words = [w for seg in result["segments"] for w in seg["words"]]
+    assert words, result["segments"][:2]
+    for seg in result["segments"]:
+        assert 0.0 <= seg["start"] <= seg["end"] <= MAIN_AUDIO_S + 1e-6, seg
+        for w in seg["words"]:
+            assert 0.0 <= w["start"] <= w["end"] <= MAIN_AUDIO_S + 1e-6, w
+            assert math.isfinite(w["probability"]), w
+    stage = report["word_timing"]
+    print(
+        f"[words] transcribe(word_timestamps=True, temperatures=(0.0,)) of {MAIN_AUDIO_S:.0f} s: "
+        f"{wall:.3f} s; word_timing stage {stage['total_s']:.4f} s ({stage['calls']} call); "
+        f"decode {report['decode']['total_s']:.4f} s; {cap.calls} captures of [rows, tokens] "
+        f"{cap.rows}; {len(words)} words in {len(result['segments'])} segments; K1 launches "
+        f"{launches} (= {n_layer} x ({n_dec} decodes + {cap.calls} captures), {cap.k1} on the "
+        f"word-timing path); peak memory {peak:.2f} GiB"
+    )
+
+    # the capture's worst case: 8 windows of 220 text tokens each (random
+    # weights rarely decode that much text, a real 30 s window can), one
+    # group, timed with its host post-processing and DTW
+    import numpy as np
+
+    from whisperx_tpu_torch.audio import log_mel_batch
+    from whisperx_tpu_torch.timing import find_alignment_batch
+
+    tokenizer = pipe._tokenizer(language="en", task="transcribe")
+    rng = np.random.default_rng(7)
+    texts = [[int(t) for t in rng.integers(220, 10000, 220)] for _ in range(8)]
+    mels = log_mel_batch(
+        np.stack([audio[i * 12 * 16000 : (i * 12 + 30) * 16000] for i in range(8)]),
+        pipe.model.dims.n_mels, device="cuda",
+    )
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = 0
+    with count_captures() as cap:
+        t0 = time.perf_counter()
+        aligned = find_alignment_batch(pipe.model, tokenizer, texts, mels, [3000] * 8)
+        wall = time.perf_counter() - t0
+    assert cap.calls == 1 and cap.k1 == flash_attention.launches == n_layer, (cap.calls, cap.k1)
+    assert all(len(a) > 0 for a in aligned)
+    print(
+        f"[words] worst case: find_alignment_batch of 8 windows x 220 tokens (capture {cap.rows}, "
+        f"{len(pipe.model.alignment_heads)} alignment heads): {wall:.3f} s with DTW; K1 launches "
+        f"{cap.k1}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
+    )
+
+
+def make_align_checkpoint(root: str) -> str:
+    """wav2vec2 BASE_CONFIG weights from a seeded ``torch.Generator``, written
+    with the port's ``save_checkpoint`` as ``<root>/en`` with the base-960h
+    dictionary; returns ``root`` (for ``WHISPERX_TPU_ALIGN_DIR``)."""
+    import dataclasses
+
+    import torch
+
+    from whisperx_tpu_torch.alignment import DEFAULT_EN_VOCAB
+    from whisperx_tpu_torch.convert.checkpoint import save_checkpoint
+    from whisperx_tpu_torch.models.wav2vec2 import BASE_CONFIG, init_params
+
+    t0 = time.perf_counter()
+    model = init_params(BASE_CONFIG, torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    save_checkpoint(
+        os.path.join(root, "en"), model,
+        {"family": "wav2vec2", "name": "base-random-seed0",
+         "config": dataclasses.asdict(BASE_CONFIG), "dictionary": DEFAULT_EN_VOCAB},
+    )
+    print(
+        f"[align] wav2vec2 BASE_CONFIG ({n_params} parameters, from torch.Generator seed 0) "
+        f"written with save_checkpoint in {time.perf_counter() - t0:.2f} s"
+    )
+    return root
+
+
+def phase_alignment(segments) -> None:
+    """Forced alignment of the main path's segments over its audio on the
+    card, through ``load_align_model`` (from ``WHISPERX_TPU_ALIGN_DIR``) and
+    ``align``; then CUDA against the CPU on the shortest segment."""
+    import numpy as np
+    import torch
+
+    import whisperx_tpu_torch
+    from whisperx_tpu_torch import alignment
+    from whisperx_tpu_torch.alignment.aligner import bucket_of
+    from whisperx_tpu_torch.models.wav2vec2 import forward, output_lengths
+
+    audio = synth_speech(MAIN_AUDIO_S, seed=1)
+    t0 = time.perf_counter()
+    aligner, meta = whisperx_tpu_torch.load_align_model("en", device="cuda")
+    torch.cuda.synchronize()
+    assert meta["random_weights"] is False and meta["type"] == "torch", meta
+    assert aligner.device.type == "cuda" and aligner.config.num_layers == 12
+    print(f"[align] load_align_model('en') from WHISPERX_TPU_ALIGN_DIR in {time.perf_counter() - t0:.2f} s")
+
+    # device time of each emission forward by CUDA events, per bucket
+    buckets, real_forward = [], aligner._forward
+
+    def timed_forward(batch):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        x = torch.from_numpy(batch).to(aligner.device)
+        start.record()
+        ems = forward(aligner.model, x)
+        end.record()
+        torch.cuda.synchronize()
+        buckets.append((batch.shape, start.elapsed_time(end)))
+        return ems.cpu().numpy()
+
+    aligner._forward = timed_forward
+    host = {"get_trellis": 0.0, "backtrack_beam": 0.0}
+    real = {name: getattr(alignment, name) for name in host}
+
+    def timed(name):
+        def run(*a, **kw):
+            t = time.perf_counter()
+            out = real[name](*a, **kw)
+            host[name] += time.perf_counter() - t
+            return out
+        return run
+
+    for name in host:
+        setattr(alignment, name, timed(name))
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        result = alignment.align(segments, aligner, meta, audio, "cuda")
+        wall = time.perf_counter() - t0
+    finally:
+        for name in host:
+            setattr(alignment, name, real[name])
+        aligner._forward = real_forward
+    words = result["word_segments"]
+    assert words and len(result["segments"]) >= 1, result
+    # every aligned segment lies in its transcript segment, in order (one
+    # emission frame of slack at the end: a char's end is its last frame +
+    # 1, at duration / (frames - 1) seconds a frame); its words inside it,
+    # their starts monotone
+    spans = []
+    for s in segments:
+        n = int(s["end"] * 16000) - int(s["start"] * 16000)
+        frames = output_lengths(aligner.config, max(n, 400))
+        spans.append((s["start"], s["end"] + (s["end"] - s["start"]) / max(frames - 1, 1) + 5e-4))
+    k = 0
+    for seg in result["segments"]:
+        while not (spans[k][0] <= seg["start"] and seg["end"] <= spans[k][1]):
+            k += 1
+            assert k < len(spans), ("aligned segment outside the transcript's", seg)
+        starts = [w["start"] for w in seg["words"] if "start" in w]
+        assert starts == sorted(starts), seg
+        for w in seg["words"]:
+            assert seg["start"] - 1e-6 <= w["start"] <= w["end"] <= seg["end"] + 1e-6, (w, seg)
+    emit_ms = sum(ms for _, ms in buckets)
+    print(
+        f"[align] align() of {len(segments)} segments over {MAIN_AUDIO_S:.0f} s: wall {wall:.3f} s; "
+        f"emissions {emit_ms:.3f} ms device in {len(buckets)} buckets "
+        + "; ".join(f"[{b} x {n}] {ms:.3f} ms" for (b, n), ms in buckets)
+        + f"; host trellis {host['get_trellis']:.4f} s, backtrack {host['backtrack_beam']:.4f} s; "
+        f"{len(words)} words in {len(result['segments'])} sentence segments; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
+    )
+
+    # CUDA against the CPU on the shortest segment with text
+    seg = min((s for s in segments if s["text"].strip()), key=lambda s: s["end"] - s["start"])
+    wave = audio[int(seg["start"] * 16000) : int(seg["end"] * 16000)]
+    cpu_aligner, cpu_meta = whisperx_tpu_torch.load_align_model("en", device="cpu")
+    cuda_em = aligner.emissions_batch([wave])[0]
+    cpu_em = cpu_aligner.emissions_batch([wave])[0]
+    err = float(np.abs(cuda_em - cpu_em).max())
+    ok = cuda_em.shape == cpu_em.shape and math.isfinite(err) and err <= EMISSION_TOL
+    same_words = alignment.align([seg], aligner, meta, audio) == alignment.align(
+        [seg], cpu_aligner, cpu_meta, audio
+    )
+    aligner.emissions_batch = lambda waves: [cpu_em]  # the CPU's emissions on both
+    try:
+        fed = alignment.align([seg], aligner, meta, audio) == alignment.align(
+            [seg], cpu_aligner, cpu_meta, audio
+        )
+    finally:
+        del aligner.emissions_batch
+    print(
+        f"[align] CUDA vs CPU on one segment ({seg['end'] - seg['start']:.2f} s, bucket "
+        f"{bucket_of(len(wave))}): emissions {list(cuda_em.shape)} max_abs_err {err:.3e} "
+        f"(tol {EMISSION_TOL:g}, TF32 off); words {'identical' if same_words else 'differ'} from "
+        f"each device's emissions; identical given the CPU emissions: {fed} {'ok' if ok and fed else 'FAIL'}"
+    )
+    if not (ok and fed):
+        raise AssertionError(f"alignment CUDA vs CPU: err {err}, same given CPU emissions {fed}")
+    del aligner, cpu_aligner
+    torch.cuda.empty_cache()
 
 
 def phase_decode_profile(model, tag: str = "profile", beam_size=None, k3=None) -> None:
@@ -962,6 +1235,42 @@ def phase_sequential() -> None:
         f"(ladder {SHORT_LADDER}), steps {steps}; {len(result['segments'])} segments; "
         f"K1 launches {k1_launches} (= {pipe.model.dims.n_audio_layer} x {len(steps)})"
     )
+
+    # the seek loop with word timing and the hallucination-silence skip:
+    # random weights' segments are anomalous, so evictions re-seek the loop
+    # about a second at a time; SEQ_WORDS_SAMPLE_LEN tokens a window bound it
+    from whisperx_tpu_torch.decoding.transcribe import transcribe as seq_transcribe
+
+    steps.clear()
+    decode_module.decode_dispatch = counted
+    flash_attention.launches = 0
+    try:
+        with count_captures() as cap:
+            t0 = time.perf_counter()
+            result = seq_transcribe(
+                pipe.model, audio, language="en", temperature=0.0, word_timestamps=True,
+                hallucination_silence_threshold=2.0, sample_len=SEQ_WORDS_SAMPLE_LEN,
+            )
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        decode_module.decode_dispatch = real
+    n_layer = pipe.model.dims.n_audio_layer
+    assert flash_attention.launches == n_layer * (len(steps) + cap.calls), (flash_attention.launches, steps, cap.calls)
+    assert cap.k1 == n_layer * cap.calls and cap.calls <= len(steps)
+    # re-seeks after evictions overlap windows, so segments need not come
+    # in order here; each lies in a window that starts inside the audio
+    for seg in result["segments"]:
+        assert seg["seek"] / 100 <= seg["start"] <= seg["end"] <= SEQ_AUDIO_S + 30.0, seg
+        for w in seg["words"]:
+            assert w["start"] <= w["end"], w
+    print(
+        f"[sequential] seek loop with word_timestamps=True, hallucination_silence_threshold=2.0, "
+        f"sample_len {SEQ_WORDS_SAMPLE_LEN}, greedy: {SEQ_AUDIO_S:.0f} s in {wall:.3f} s; "
+        f"{len(steps)} window decodes, {cap.calls} captures; {len(result['segments'])} segments "
+        f"kept, {sum(len(seg['words']) for seg in result['segments'])} words; K1 launches "
+        f"{flash_attention.launches} (= {n_layer} x ({len(steps)} + {cap.calls}))"
+    )
     del pipe
     torch.cuda.empty_cache()
 
@@ -1009,7 +1318,8 @@ def phase_cli(k4: dict, k4_shapes: list):
         out_dir = os.path.join(tmp, "out")
         argv = [
             wav, "--model", "large-v3", "--compute_type", "int8",
-            "--vad_method", "energy", "--language", "en", "--no_align", "-f", "all",
+            "--vad_method", "energy", "--language", "en", "-f", "all",
+            "--highlight_words", "True",
             "--batch_size", "8", "--temperature_increment_on_fallback", "None",
             "-o", out_dir,
         ]
@@ -1078,8 +1388,12 @@ def phase_cli(k4: dict, k4_shapes: list):
         with open(os.path.join(out_dir, "clip.json")) as f:
             result = json.load(f)
         assert result["language"] == "en" and isinstance(result["segments"], list)
+        # alignment ran (phase 4c's checkpoint): words, and highlighted SRT
+        assert result["segments"] and result["word_segments"], result
+        with open(os.path.join(out_dir, "clip.srt")) as f:
+            assert "<u>" in f.read()
         for seg in result["segments"]:
-            assert 0.0 <= seg["start"] < seg["end"] <= CLI_AUDIO_S + 1e-6, seg
+            assert 0.0 <= seg["start"] <= seg["end"] <= CLI_AUDIO_S + ALIGN_END_SLACK_S, seg
     for stage, st in report.items():
         print(
             f"[cli] stage {stage}: calls {st['calls']} total {st['total_s']:.4f} s "
@@ -1090,7 +1404,8 @@ def phase_cli(k4: dict, k4_shapes: list):
         f"[cli] {CLI_AUDIO_S:.0f} s audio: transcription {busy:.3f} s, RTF "
         f"{CLI_AUDIO_S / busy:.2f}x; whole CLI (load, host quantization "
         f"{quantize_s[0]:.2f} s, transcription, writers) {wall:.3f} s; "
-        f"{len(result['segments'])} segments; {n_dec} decodes, {steps} decode steps "
+        f"{len(result['segments'])} aligned segments, {len(result['word_segments'])} words; "
+        f"{n_dec} decodes, {steps} decode steps "
         f"(beam 5, {counters.get('batch_used', 0):.0f}/{counters.get('batch_slots', 0):.0f} "
         f"batch slots); K4 launches {k4_launches} (= {len(q_blocks)} x (2 x {n_dec} + "
         f"8 x ({n_dec} + {steps}))); K1 launches {k1_launches}; peak memory "
@@ -1188,6 +1503,29 @@ def phase_small_model() -> None:
         f"({sum(len(s['tokens']) for s in seq['cuda'])} tokens, windows at seeks "
         f"{sorted({s['seek'] for s in seq['cuda']})}) on cuda and cpu"
     )
+    # word timing: the same words, starts and ends (probabilities from two
+    # devices' softmax, within 1e-5)
+    words, probs = {}, {}
+    for dev, p in pipes.items():
+        out = p.transcribe(audio, language="en", temperatures=(0.0,), word_timestamps=True)
+        words[dev] = [[(w["word"], w["start"], w["end"]) for w in s["words"]] for s in out["segments"]]
+        probs[dev] = [w["probability"] for s in out["segments"] for w in s["words"]]
+    assert words["cpu"] == words["cuda"] and any(words["cuda"]), words
+    prob_err = max(abs(a - b) for a, b in zip(probs["cpu"], probs["cuda"]))
+    assert prob_err <= 1e-5, prob_err
+    print(
+        f"[small] test-nano f32 word timing: {sum(map(len, words['cuda']))} identical words "
+        f"(text, start, end) on cuda and cpu; probabilities within {prob_err:.2e}"
+    )
+    # the JAX package's XLA-route switches raise on CUDA (no such route here)
+    os.environ["WHISPERX_TPU_FLASH"] = "0"
+    try:
+        pipes["cuda"].transcribe(audio[:16000 * 5], language="en", temperatures=(0.0,))
+        raise AssertionError("WHISPERX_TPU_FLASH=0 did not raise on CUDA")
+    except ValueError as e:
+        assert "WHISPERX_TPU_FLASH" in str(e), e
+    finally:
+        del os.environ["WHISPERX_TPU_FLASH"]
 
     # int8: every decoder linear at depth 2 quantized on the CPU, the same
     # codes bridged to cuda, where they run K4's f32 kernel
@@ -1207,6 +1545,15 @@ def phase_small_model() -> None:
         )
     assert quant_matmul.launches > 0
     print(f"[small] K4 (f32) launched {quant_matmul.launches} times on cuda")
+    os.environ["WHISPERX_TPU_NO_PALLAS_QUANT"] = "1"
+    try:
+        decode(models["cuda"], mels.to("cuda")[:1], DecodingOptions(language="en", sample_len=4))
+        raise AssertionError("WHISPERX_TPU_NO_PALLAS_QUANT did not raise on CUDA")
+    except ValueError as e:
+        assert "WHISPERX_TPU_NO_PALLAS_QUANT" in str(e), e
+    finally:
+        del os.environ["WHISPERX_TPU_NO_PALLAS_QUANT"]
+    print("[small] WHISPERX_TPU_FLASH=0 and WHISPERX_TPU_NO_PALLAS_QUANT raise ValueError on cuda")
 
 
 def main() -> int:
@@ -1220,6 +1567,9 @@ def main() -> int:
         print("chip_smoke: no CUDA GPU (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
     os.environ.pop(CROSS_DECODE_FLAG, None)  # off (the default) but where asked
+    # the aligner is the checkpoint phase 4c writes; random weights are skipped
+    for flag in ("WHISPERX_TPU_ALIGN_DIR", "WHISPERX_TPU_ALLOW_RANDOM_ALIGN"):
+        os.environ.pop(flag, None)
     t_start = time.perf_counter()
     name = phase_card()
     phase_build()
@@ -1244,16 +1594,22 @@ def main() -> int:
     }
     for _, fn, attr in unused.values():
         setattr(fn, attr, 0)
-    pipe = phase_main_path(k1)
-    phase_decode_profile(pipe.model)
-    phase_cross_decode_step(pipe.model)
-    with cross_decode_opt_in():
-        phase_decode_profile(pipe.model, "profile cross-decode", k3=k3)
-    phase_transcribe_many(pipe, k3)
-    del pipe
-    torch.cuda.empty_cache()
-    phase_sequential()
-    model = phase_cli(k4, k4_shapes)
+    pipe, main_result = phase_main_path(k1)
+    phase_word_timing(pipe)
+    # the aligner's checkpoint, for the alignment phase and the CLI's
+    with tempfile.TemporaryDirectory() as align_root:
+        os.environ["WHISPERX_TPU_ALIGN_DIR"] = make_align_checkpoint(align_root)
+        phase_alignment(main_result["segments"])
+        phase_decode_profile(pipe.model)
+        phase_cross_decode_step(pipe.model)
+        with cross_decode_opt_in():
+            phase_decode_profile(pipe.model, "profile cross-decode", k3=k3)
+        phase_transcribe_many(pipe, k3)
+        del pipe
+        torch.cuda.empty_cache()
+        phase_sequential()
+        model = phase_cli(k4, k4_shapes)
+        del os.environ["WHISPERX_TPU_ALIGN_DIR"]
     phase_decode_profile(model, "profile int8", beam_size=5)
     del model
     torch.cuda.empty_cache()

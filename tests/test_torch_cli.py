@@ -1,8 +1,9 @@
 """The port's CLI against the JAX package's on the CPU: the same flags,
 choices and defaults (but ``--device`` and ``--version``); byte-identical
 transcripts from the same f32 checkpoint, with the default beam search, the
-int8 path, and the sequential modes (``--vad_method none``, ``--backend
-sequential``); and every flag of a stage not ported yet raises
+int8 path, the sequential modes (``--vad_method none``, ``--backend
+sequential``), word timing and forced alignment (with no aligner checkpoint,
+and with one); and every flag of a stage not ported yet raises
 ``NotImplementedError`` naming its ROADMAP.md item, before anything loads."""
 
 import dataclasses
@@ -167,6 +168,35 @@ def test_cli_sequential_modes_write_the_same_files_as_jax(workdir, mode):
         assert got[f] == want[f], f
 
 
+def _same_outputs(jax_dir, torch_dir):
+    """Every written file byte-identical, but the JSON's word probabilities
+    (``--word_timestamps``), which come from two softmax implementations:
+    the parsed JSON is identical without them, and they agree within 1e-6."""
+    want, got = _outputs(jax_dir), _outputs(torch_dir)
+    for f in OUTPUTS:
+        if f != "json":
+            assert got[f] == want[f], f
+    probs = {}
+    for name, raw in (("jax", want["json"]), ("torch", got["json"])):
+        result = json.loads(raw)
+        probs[name] = [
+            w.pop("probability") for s in result["segments"] for w in s.get("words", [])
+        ]
+        probs[name + " json"] = result
+    assert probs["torch json"] == probs["jax json"]
+    np.testing.assert_allclose(probs["torch"], probs["jax"], atol=1e-6, rtol=0)
+    if not probs["torch"]:
+        assert got["json"] == want["json"]
+    return probs["torch json"]
+
+
+# flags of stages that are not ported raise; the ones this slice ported
+# (alignment, word timing, the silence threshold, and the seek loop with
+# word timing) write what the JAX CLI writes
+PORTED = {"align", "--word_timestamps True", "--hallucination_silence_threshold 2",
+          "--vad_method none --word_timestamps True"}
+
+
 @pytest.mark.parametrize(
     "extra",
     [
@@ -187,10 +217,124 @@ def test_cli_sequential_modes_write_the_same_files_as_jax(workdir, mode):
     ],
     ids=lambda e: " ".join(e) or "align",
 )
-def test_not_ported_flags_raise(workdir, extra):
+def test_not_ported_flags_raise(workdir, extra, monkeypatch, capsys):
+    """A flag of a stage that is not ported raises ``NotImplementedError``
+    naming its ROADMAP.md item before anything is written. The four cases
+    this slice ported run instead and write what the JAX CLI writes:
+    alignment with no aligner checkpoint (both skip it, with a message),
+    word timing in the batched pipeline and in the seek loop, and the
+    hallucination-silence threshold with it."""
+    case = " ".join(extra) or "align"
     argv = _argv(workdir, "refused", "float32")
     if not extra:
         argv.remove("--no_align")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md, Queue 1, item \d+"):
-        _run("torch", argv + list(extra))
-    assert not os.path.exists(workdir / "refused" / "clip.json")
+    if case not in PORTED:
+        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md, Queue 1, item \d+"):
+            _run("torch", argv + list(extra))
+        assert not os.path.exists(workdir / "refused" / "clip.json")
+        return
+    if case == "--hallucination_silence_threshold 2":
+        extra = ("--word_timestamps", "True", *extra)  # it needs the words
+    # JAX on one device: its data-parallel route over the suite's 8 virtual
+    # CPU devices gives the same files ~10x slower
+    extra = (*extra, "--data_parallel", "off")
+    # no aligner checkpoint anywhere, and random weights refused
+    monkeypatch.setenv("HOME", str(workdir / "home"))
+    monkeypatch.delenv("WHISPERX_TPU_ALIGN_DIR", raising=False)
+    monkeypatch.delenv("WHISPERX_TPU_ALLOW_RANDOM_ALIGN", raising=False)
+    out = case.replace(" ", "_").strip("-")
+    dirs = {}
+    for pkg in ("jax", "torch"):
+        dirs[pkg] = workdir / f"{pkg}_{out}"
+        argv[argv.index("-o") + 1] = str(dirs[pkg])
+        _run(pkg, argv + list(extra))
+        if case == "align":
+            assert ">>Skipping alignment" in capsys.readouterr().out, pkg
+    result = _same_outputs(dirs["jax"], dirs["torch"])
+    words = [w for s in result["segments"] for w in s.get("words", [])]
+    # random weights: the silence threshold evicts every segment as an
+    # anomaly, in both packages
+    assert bool(words) == (case in PORTED - {"align", "--hallucination_silence_threshold 2"})
+    assert "word_segments" not in result
+    for w in words:
+        assert 0.0 <= w["start"] <= w["end"] <= 10.0
+
+
+@pytest.fixture(scope="module")
+def align_ckpt(tmp_path_factory):
+    """A wav2vec2 TEST_CONFIG aligner written by the JAX package under
+    ``<dir>/en``, with the base-960h dictionary."""
+    from whisperx_tpu.alignment import DEFAULT_EN_VOCAB
+    from whisperx_tpu.models.wav2vec2 import model as w2v
+
+    root = tmp_path_factory.mktemp("align")
+    save_checkpoint(
+        str(root / "en"), w2v.init_params(w2v.TEST_CONFIG, jax.random.PRNGKey(3)),
+        {"family": "wav2vec2", "name": "test", "dictionary": dict(DEFAULT_EN_VOCAB),
+         "config": dataclasses.asdict(w2v.TEST_CONFIG)},
+    )
+    return root
+
+
+@pytest.mark.parametrize("aligner", ["none", "checkpoint"])
+@pytest.mark.parametrize("sr", [16000, 44100])
+def test_cli_with_alignment_writes_the_same_files_as_jax(
+    workdir, align_ckpt, tmp_path, monkeypatch, capsys, sr, aligner
+):
+    """The North-star check: ``python -m whisperx_tpu_torch clip.wav`` with
+    alignment on (no ``--no_align``), ffmpeg absent, on a 16 kHz and a
+    44.1 kHz WAV (decoded by the native library in both packages): every
+    file byte-identical to the JAX CLI's, both with no aligner checkpoint
+    (both print the skip message) and with a TEST_CONFIG checkpoint in
+    ``WHISPERX_TPU_ALIGN_DIR`` (word segments written, with
+    ``--highlight_words``)."""
+    import whisperx_tpu.audio.io as jio
+    import whisperx_tpu_torch.audio.io as tio
+
+    monkeypatch.setattr(jio, "_FFMPEG", None)
+    monkeypatch.setattr(tio, "_FFMPEG", None)
+    monkeypatch.setenv("HOME", str(tmp_path))
+    monkeypatch.delenv("WHISPERX_TPU_ALLOW_RANDOM_ALIGN", raising=False)
+    if aligner == "checkpoint":
+        monkeypatch.setenv("WHISPERX_TPU_ALIGN_DIR", str(align_ckpt))
+    else:
+        monkeypatch.delenv("WHISPERX_TPU_ALIGN_DIR", raising=False)
+    silence = np.zeros(sr // 2, np.float32)
+    wav = tmp_path / "clip.wav"
+    from whisperx_tpu_torch.audio import save_wav
+
+    save_wav(str(wav), np.concatenate([silence, synth_speech(7.0, sr=sr, seed=8), silence]), sr)
+    extra = ["--data_parallel", "off"]  # JAX on one device (see above)
+    if aligner == "checkpoint":
+        extra += ["--highlight_words", "True"]
+    for pkg in ("jax", "torch"):
+        argv = _argv(workdir, "-", "float32", *extra)
+        argv[0] = str(wav)
+        argv.remove("--no_align")
+        argv[argv.index("-o") + 1] = str(tmp_path / pkg)
+        _run(pkg, argv)
+        said = capsys.readouterr().out
+        assert (">>Skipping alignment" in said) == (aligner == "none"), pkg
+        assert (">>Performing alignment" in said) == (aligner == "checkpoint"), pkg
+    want, got = _outputs(tmp_path / "jax"), _outputs(tmp_path / "torch")
+    for f in OUTPUTS:
+        assert got[f] == want[f], f
+    result = json.loads(got["json"])
+    assert ("word_segments" in result) == (aligner == "checkpoint")
+    if aligner == "checkpoint":
+        assert result["word_segments"] and b"<u>" in got["srt"]
+
+
+def test_cli_reloads_the_aligner_for_a_new_language(workdir, align_ckpt, monkeypatch, capsys):
+    """Without ``--language`` the transcript's detected language (here
+    "sa", from random weights) differs from the aligner's ("en"): both CLIs
+    announce the new language and reload its default aligner, which for
+    "sa" does not exist, so both raise the same ``ValueError``."""
+    monkeypatch.setenv("WHISPERX_TPU_ALIGN_DIR", str(align_ckpt))
+    for pkg in ("jax", "torch"):
+        argv = _argv(workdir, f"{pkg}_reload", "float32", "--data_parallel", "off")
+        argv.remove("--no_align")
+        del argv[argv.index("--language") : argv.index("--language") + 2]
+        with pytest.raises(ValueError, match="No default align-model for language: sa"):
+            _run(pkg, argv)
+        assert "New language found (sa)! Previous was (en)" in capsys.readouterr().out, pkg

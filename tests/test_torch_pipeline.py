@@ -1,8 +1,10 @@
 """The port's transcription pipeline end to end on the CPU: the same
 checkpoint through ``whisperx_tpu.load_model`` and
-``whisperx_tpu_torch.load_model`` gives identical segments; the port runs
-without JAX or the JAX package; CUDA is never silently replaced by the CPU;
-options this slice does not run raise."""
+``whisperx_tpu_torch.load_model`` gives identical segments (and words, with
+``word_timestamps``); the reference's compatibility keywords are accepted;
+the ``WHISPERX_TPU_*`` switches are honoured or refused as the port's rule
+says; the port runs without JAX or the JAX package; CUDA is never silently
+replaced by the CPU; options this slice does not run raise."""
 
 import dataclasses
 import os
@@ -12,6 +14,7 @@ import textwrap
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
@@ -82,28 +85,40 @@ def test_fallback_temperatures_rerun_failing_chunks(nano_ckpt, speech35):
 
 def test_port_runs_without_jax(nano_ckpt):
     """A fresh interpreter imports the port (its CLI, orchestrator, backends,
-    seek loop, kernels' modules and quantization too) and transcribes, with
-    a VAD and without; neither jax nor any module of the JAX package is
-    loaded."""
+    seek loop, kernels' modules, quantization, alignment, word timing and
+    the native audio library too), transcribes with word timestamps, with a
+    VAD and without, and aligns (random weights, allowed by the suite's
+    ``WHISPERX_TPU_ALLOW_RANDOM_ALIGN``); neither jax nor any module of the
+    JAX package is loaded."""
     code = textwrap.dedent(
         f"""
         import sys
         import numpy as np
         import whisperx_tpu_torch
         import whisperx_tpu_torch.__main__
+        import whisperx_tpu_torch.alignment
         import whisperx_tpu_torch.backends
         import whisperx_tpu_torch.decoding.transcribe
         import whisperx_tpu_torch.ops.cross_attention_decode
         import whisperx_tpu_torch.ops.flash_attention
+        import whisperx_tpu_torch.native
         import whisperx_tpu_torch.quant
+        import whisperx_tpu_torch.timing
         import whisperx_tpu_torch.transcribe
         t = np.arange(16000 * 12) / 16000
         audio = (0.3 * np.sin(2 * np.pi * 220 * t) * (np.sin(2 * np.pi * 0.3 * t) > 0)).astype(np.float32)
         pipe = whisperx_tpu_torch.load_model(
             {nano_ckpt!r}, device="cpu", compute_type="float32", vad_method="energy"
         )
-        out = pipe.transcribe(audio, language="en", temperatures=(0.0,), sample_len=16)
+        out = pipe.transcribe(
+            audio, language="en", temperatures=(0.0,), sample_len=16, word_timestamps=True
+        )
         assert out["language"] == "en" and out["segments"], out
+        assert any(seg["words"] for seg in out["segments"]), out
+        aligner, meta = whisperx_tpu_torch.load_align_model("en", device="cpu")
+        aligned = whisperx_tpu_torch.align(out["segments"], aligner, meta, audio, "cpu")
+        assert aligned["word_segments"], aligned
+        assert len(whisperx_tpu_torch.native.resample(audio, 16000, 8000)) == len(audio) // 2
         seq = whisperx_tpu_torch.load_model(
             {nano_ckpt!r}, device="cpu", compute_type="float32", vad_method="none"
         )
@@ -162,11 +177,21 @@ def test_cuda_without_a_gpu_raises(monkeypatch):
         whisperx_tpu_torch.load_model("test-nano", vad_method="energy")
 
 
+def _same_result(got, want):
+    """Identical segments, and words with the same text, starts and ends;
+    the words' probabilities (two softmax implementations) within 1e-6."""
+    probs = []
+    for result in (got, want):
+        probs.append([w.pop("probability") for s in result["segments"] for w in s.get("words", [])])
+    assert got == want
+    np.testing.assert_allclose(probs[0], probs[1], atol=1e-6, rtol=0)
+
+
 @pytest.mark.parametrize(
     "kwargs",
     [
         # the sequential modes run (tests/test_torch_sequential.py); what
-        # they cannot run yet still raises
+        # they cannot run yet still raises; word timing runs in every mode
         dict(backend="standard", asr_options={"word_timestamps": True}),
         dict(vad_method="none", asr_options={"draft_model": "self:1"}),
         dict(backend="sequential", vad_method="pyannote"),
@@ -178,39 +203,206 @@ def test_cuda_without_a_gpu_raises(monkeypatch):
         dict(asr_options={"word_timestamps": True}),
     ],
 )
-def test_unported_load_options_raise(kwargs):
+def test_unported_load_options_raise(kwargs, nano_ckpt, speech35):
+    """Options of stages not ported raise at ``load_model``. Word timing is
+    ported: in the batched pipeline, the seek loop over each VAD chunk
+    (``backend="standard"``) and over the whole file (no VAD), the words are
+    those of the JAX package."""
+    import whisperx_tpu
     import whisperx_tpu_torch
 
-    kw = {"device": "cpu", "vad_method": "energy", **kwargs}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        whisperx_tpu_torch.load_model("test-nano", **kw)
+    kw = {"vad_method": "energy", **kwargs}
+    if not kwargs.get("asr_options", {}).get("word_timestamps"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            whisperx_tpu_torch.load_model("test-nano", device="cpu", **kw)
+        return
+    kw.update(compute_type="float32", language="en")
+    kw["asr_options"] = {**kw["asr_options"], "temperatures": (0.0,), "sample_len": 24}
+    audio = speech35[: 16000 * 20]
+    want = whisperx_tpu.load_model(nano_ckpt, device="cpu", **kw).transcribe(audio)
+    got = whisperx_tpu_torch.load_model(nano_ckpt, device="cpu", **kw).transcribe(audio)
+    assert any(s.get("words") for s in got["segments"])
+    _same_result(got, want)
 
 
 @pytest.mark.parametrize(
     "option", [{"draft_model": "tiny"}, {"word_timestamps": True}, {"draft_model": "self:1"}]
 )
-def test_unported_call_options_raise(option):
+def test_unported_call_options_raise(option, nano_ckpt, speech35):
+    """A per-call option of a stage not ported raises; a misspelt one is a
+    ``TypeError``. ``word_timestamps=True`` for one call runs and gives the
+    JAX package's words."""
     import whisperx_tpu_torch
 
     pipe = whisperx_tpu_torch.load_model("test-nano", device="cpu", vad_method="energy")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        pipe.transcribe(synth_speech(2.0), language="en", **option)
     with pytest.raises(TypeError, match="Unknown transcribe option"):
         pipe.transcribe(synth_speech(2.0), language="en", beamsize=2)
+    if "draft_model" in option:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            pipe.transcribe(synth_speech(2.0), language="en", **option)
+        return
+    jpipe, tpipe = _pipelines(nano_ckpt)
+    kw = dict(language="en", temperatures=(0.0,), sample_len=24, **option)
+    got = tpipe.transcribe(speech35, **kw)
+    assert any(s["words"] for s in got["segments"])
+    _same_result(got, jpipe.transcribe(speech35, **kw))
 
 
-def test_sequential_decode_mode_raises():
-    """The sequential mode runs now; word timing, which it would need for
-    ``word_timestamps``, is not ported yet and raises."""
+def test_sequential_decode_mode_raises(nano_ckpt, speech35):
+    """The sequential mode (the seek loop over each VAD chunk) runs word
+    timing too, with the hallucination-silence threshold: the words, shifted
+    to the file's timeline and clamped to their segments, are the JAX
+    package's."""
+    from whisperx_tpu.asr import TranscriptionPipeline as JPipeline
     from whisperx_tpu_torch.asr import TranscriptionPipeline
     from whisperx_tpu_torch.vad import EnergyVAD
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TranscriptionPipeline(
-            model=None, vad_model=EnergyVAD(), decode_mode="sequential",
-            asr_options={"word_timestamps": True},
-        )
+    jpipe, tpipe = _pipelines(nano_ckpt)
+    options = {"word_timestamps": True, "temperatures": (0.0,)}
+    results = []
+    for pipe, cls in ((jpipe, JPipeline), (tpipe, TranscriptionPipeline)):
+        seq = cls(model=pipe.model, vad_model=pipe.vad_model, decode_mode="sequential",
+                  asr_options=options)
+        results.append([
+            seq.transcribe(speech35, language="en", sample_len=24, **kw)
+            for kw in ({}, {"hallucination_silence_threshold": 1.0})
+        ])
+    assert isinstance(tpipe.vad_model, EnergyVAD)
+    assert any(s.get("words") for s in results[1][0]["segments"])
+    for got, want in zip(results[1], results[0]):
+        _same_result(got, want)
     assert TranscriptionPipeline(model=None, decode_mode="sequential").vad_model is None
+
+
+def test_reference_compat_keywords_are_accepted(nano_ckpt, speech35):
+    """``load_model`` accepts and ignores ``device_index``,
+    ``download_root``, ``local_files_only``, ``threads`` and any other
+    keyword, and ``transcribe`` accepts ``combined_progress``, as the JAX
+    package does (ADVICE r5, asr.py:261): the same transcript as JAX's with
+    the same five names."""
+    import whisperx_tpu
+    import whisperx_tpu_torch
+
+    kw = dict(
+        device="cpu", device_index=0, download_root=str(nano_ckpt), local_files_only=True,
+        threads=2, some_future_option=1, compute_type="float32", vad_method="energy",
+    )
+    call = dict(language="en", temperatures=(0.0,), sample_len=16, combined_progress=True)
+    audio = speech35[: 16000 * 12]
+    want = whisperx_tpu.load_model(nano_ckpt, **kw).transcribe(audio, **call)
+    got = whisperx_tpu_torch.load_model(nano_ckpt, **kw).transcribe(audio, **call)
+    assert got == want and got["segments"]
+
+
+def test_per_call_options_leave_the_pipeline_options(nano_ckpt):
+    """A divergence from the reference, named (ADVICE r5, asr.py:267): JAX
+    swaps a call's options into ``self.asr_options`` while it runs; the port
+    applies them to a copy, so ``pipe.asr_options`` is never touched, not
+    even during the call (a concurrent caller sees the pipeline's own)."""
+    import whisperx_tpu_torch
+    from whisperx_tpu_torch import asr
+
+    _, pipe = _pipelines(nano_ckpt)
+    before = dict(pipe.asr_options)
+    seen = []
+    real = asr.TranscriptionPipeline._transcribe_chunks
+
+    def spy(self, *a, **k):
+        seen.append((dict(self.asr_options), a[2]["sample_len"], a[2]["word_timestamps"]))
+        return real(self, *a, **k)
+
+    asr.TranscriptionPipeline._transcribe_chunks = spy
+    try:
+        pipe.transcribe(synth_speech(4.0), language="en", temperatures=(0.0,),
+                        sample_len=8, word_timestamps=True)
+    finally:
+        asr.TranscriptionPipeline._transcribe_chunks = real
+    assert pipe.asr_options == before and isinstance(pipe, whisperx_tpu_torch.asr.TranscriptionPipeline)
+    assert seen == [(before, 8, True)]
+
+
+@pytest.mark.parametrize("budget", [None, "0.001", "0.5", "80"])
+def test_kv_budget_switch_matches_jax(monkeypatch, budget):
+    """``WHISPERX_TPU_KV_HBM_GB`` sets the decode-row budget with the JAX
+    package's formula and default (8 GiB)."""
+    from types import SimpleNamespace
+
+    from whisperx_tpu.asr import _max_decode_rows as jax_rows
+    from whisperx_tpu.models.whisper.config import get_dims
+    from whisperx_tpu_torch.asr import _max_decode_rows
+
+    if budget is None:
+        monkeypatch.delenv("WHISPERX_TPU_KV_HBM_GB", raising=False)
+    else:
+        monkeypatch.setenv("WHISPERX_TPU_KV_HBM_GB", budget)
+    for name in ("test-nano", "large-v3"):
+        model = SimpleNamespace(dims=get_dims(name))
+        for kv_quant, sample_len in ((True, None), (False, None), (True, 24)):
+            got = _max_decode_rows(model, kv_quant=kv_quant, sample_len=sample_len)
+            assert got == jax_rows(model, kv_quant=kv_quant, sample_len=sample_len), name
+    if budget == "0.001":  # less than one row: still one
+        assert _max_decode_rows(model, kv_quant=True, sample_len=None) == 1
+
+
+def test_kv_quant_switch_forces_the_int8_cache(monkeypatch, nano_ckpt):
+    """``WHISPERX_TPU_KV_QUANT=int8`` quantizes the cross-KV cache even
+    where the options say ``kv_quant=False`` (the seek loop), as in JAX:
+    the same tokens as the JAX seek loop under the same switch."""
+    import importlib
+
+    from whisperx_tpu.decoding.transcribe import transcribe as jax_transcribe
+    from whisperx_tpu_torch.decoding.transcribe import transcribe
+
+    # the module: the package's ``decoding.decode`` is the function
+    tdec = importlib.import_module("whisperx_tpu_torch.decoding.decode")
+
+    jpipe, tpipe = _pipelines(nano_ckpt)
+    calls = []
+    real = tdec.quantize_kv
+    monkeypatch.setattr(tdec, "quantize_kv", lambda x: calls.append(1) or real(x))
+    kw = dict(language="en", temperature=0.0, sample_len=8)
+    audio = synth_speech(6.0, seed=3)  # one window
+    transcribe(tpipe.model, audio, **kw)
+    assert calls == []
+    monkeypatch.setenv("WHISPERX_TPU_KV_QUANT", "int8")
+    got = transcribe(tpipe.model, audio, **kw)
+    assert len(calls) == 2 * tpipe.model.dims.n_text_layer  # K and V of each layer
+    want = jax_transcribe(jpipe.model, audio, **kw)
+    assert [s["tokens"] for s in got["segments"]] == [s["tokens"] for s in want["segments"]]
+
+
+@pytest.mark.parametrize("switch", ["WHISPERX_TPU_FLASH", "WHISPERX_TPU_NO_PALLAS_QUANT"])
+def test_xla_route_switches_raise_on_cuda_and_change_nothing_on_cpu(monkeypatch, nano_ckpt, switch):
+    """JAX's ``WHISPERX_TPU_FLASH=0`` and ``WHISPERX_TPU_NO_PALLAS_QUANT``
+    pick its XLA route over the Pallas kernel. The port has none (a CUDA
+    tensor launches the kernel or raises): on a CUDA tensor the switch
+    raises a ``ValueError`` naming it and the rule; on the CPU, where the
+    plain version runs anyway, the transcript is unchanged."""
+    from types import SimpleNamespace
+
+    import whisperx_tpu_torch
+    from whisperx_tpu_torch import ops
+    from whisperx_tpu_torch.models.whisper import model as wmodel
+    from whisperx_tpu_torch.ops import quant_matmul
+
+    value = "0" if switch == "WHISPERX_TPU_FLASH" else "1"
+    monkeypatch.setenv(switch, value)
+    with pytest.raises(ValueError, match=f"{switch}='{value}'.*launches the hand-written kernel or raises"):
+        ops.refuse_xla_route(switch, True, SimpleNamespace(is_cuda=True))
+    ops.refuse_xla_route(switch, True, SimpleNamespace(is_cuda=False))
+
+    asked = []
+    for mod in (wmodel, quant_matmul):  # the call sites read the switch
+        real = mod.refuse_xla_route
+        monkeypatch.setattr(mod, "refuse_xla_route",
+                            lambda name, on, t, real=real: asked.append((name, on)) or real(name, on, t))
+    kw = dict(device="cpu", vad_method="energy", compute_type="int8")
+    call = dict(language="en", temperatures=(0.0,), sample_len=8)
+    audio = synth_speech(6.0, seed=4)
+    with_switch = whisperx_tpu_torch.load_model(nano_ckpt, **kw).transcribe(audio, **call)
+    assert (switch, True) in asked
+    monkeypatch.delenv(switch)
+    assert whisperx_tpu_torch.load_model(nano_ckpt, **kw).transcribe(audio, **call) == with_switch
 
 
 def test_silero_without_checkpoint_falls_back_to_energy(monkeypatch):

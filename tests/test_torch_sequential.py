@@ -2,8 +2,9 @@
 ``decoding/transcribe.py::transcribe`` on f32 ``test-nano`` (with and without
 a prompt, conditioning on and off, a temperature ladder, no-speech
 skipping), the pipeline without a VAD and with ``backend="sequential"``,
-``load_backend``, the learned micro checkpoint in f32 and bf16, and the
-hallucination helpers that word timing will call."""
+``load_backend``, the learned micro checkpoint in f32 and bf16, word
+timing with and without the hallucination-silence threshold, and the
+hallucination helpers."""
 
 import dataclasses
 
@@ -111,13 +112,32 @@ def test_no_speech_windows_are_skipped_as_in_jax(models, speech, monkeypatch):
     assert_same_transcript(tt.transcribe(tmodel, speech, **kw), jt.transcribe(jmodel, speech, **kw))
 
 
-def test_word_timestamps_raise_and_the_silence_threshold_warns(models):
-    _, tmodel = models
-    audio = synth_speech(3.0)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md, Queue 1, item 9"):
-        tt.transcribe(tmodel, audio, word_timestamps=True)
+def test_word_timestamps_raise_and_the_silence_threshold_warns(models, speech):
+    """Word timing in the seek loop is ported: the same segments, seeks and
+    words (text, start, end; probabilities within 1e-6) as JAX's, also with
+    the hallucination-silence threshold, whose skips and evictions re-seek
+    the loop. Without word timestamps the threshold still warns and is
+    ignored."""
+    jmodel, tmodel = models
+    for threshold in (None, 1.0):
+        kw = dict(language="en", sample_len=24, temperature=0.0, word_timestamps=True,
+                  hallucination_silence_threshold=threshold)
+        want = jt.transcribe(jmodel, speech, **kw)
+        got = tt.transcribe(tmodel, speech, **kw)
+        assert_same_transcript(got, want)
+        words = [[(w["word"], w["start"], w["end"]) for w in s["words"]] for s in got["segments"]]
+        assert words == [
+            [(w["word"], w["start"], w["end"]) for w in s["words"]] for s in want["segments"]
+        ]
+        np.testing.assert_allclose(
+            [w["probability"] for s in got["segments"] for w in s["words"]],
+            [w["probability"] for s in want["segments"] for w in s["words"]], atol=1e-6, rtol=0,
+        )
+        if threshold is None:
+            assert any(words)
     with pytest.warns(UserWarning, match="word_timestamps"):
-        tt.transcribe(tmodel, audio, language="en", sample_len=4, hallucination_silence_threshold=2.0)
+        tt.transcribe(tmodel, synth_speech(3.0), language="en", sample_len=4,
+                      hallucination_silence_threshold=2.0)
 
 
 def _pipelines(ckpt, **kw):
@@ -176,6 +196,14 @@ def test_load_backend_matches_jax(nano_ckpt, kind):
     assert tb.transcribe(audio) == jb.transcribe(audio)
     with pytest.raises(ValueError, match="Unknown backend"):
         load_backend("bogus")
+    # with word timestamps, both backends keep the words (the same text,
+    # starts and ends; probabilities within 1e-6)
+    kw["asr_options"] = {**opts, "word_timestamps": True}
+    got = load_backend(kind, device="cpu", **kw).transcribe(audio)
+    want = jax_load_backend(kind, device="cpu", **kw).transcribe(audio)
+    probs = [[w.pop("probability") for s in r["segments"] for w in s["words"]] for r in (got, want)]
+    assert got == want and probs[0]
+    np.testing.assert_allclose(probs[0], probs[1], atol=1e-6, rtol=0)
 
 
 @pytest.mark.parametrize("kind", ["batched", "sequential"])

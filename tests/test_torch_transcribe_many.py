@@ -78,6 +78,30 @@ def test_pooled_results_identical_to_jax(nano_ckpt, audios, case):
         assert counters["batch_slots"] == 4 * -(-n_chunks // 4)
 
 
+def test_pooled_words_identical_to_jax(nano_ckpt, audios):
+    """With ``word_timestamps`` in the pipeline's options, each request's
+    words come back on its own timeline: the same words, starts and ends as
+    JAX's (probabilities within 1e-6)."""
+    import numpy as np
+
+    jpipe, tpipe = _pipelines(nano_ckpt)
+    results = []
+    for pipe in (jpipe, tpipe):
+        pipe.asr_options = {**pipe.asr_options, "word_timestamps": True}
+        results.append(pipe.transcribe_many(audios, batch_size=4, language="en"))
+    probs = [
+        [w.pop("probability") for r in res for s in r["segments"] for w in s["words"]]
+        for res in results
+    ]
+    want, got = results
+    assert got == want and probs[1]
+    np.testing.assert_allclose(probs[1], probs[0], atol=1e-6, rtol=0)
+    for r, audio in zip(got, audios):
+        for seg in r["segments"]:
+            for w in seg["words"]:
+                assert 0.0 <= w["start"] <= w["end"] <= len(audio) / 16000 + 1.0
+
+
 def test_pooled_equals_one_by_one(nano_ckpt, audios):
     """Pooling does not change any request's segments (f32 greedy rows are
     independent of their batch neighbours)."""

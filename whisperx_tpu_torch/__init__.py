@@ -12,6 +12,8 @@ __version__ = "0.1.0"
 _LAZY = {
     "load_model": ("whisperx_tpu_torch.asr", "load_model"),
     "load_audio": ("whisperx_tpu_torch.audio", "load_audio"),
+    "load_align_model": ("whisperx_tpu_torch.alignment", "load_align_model"),
+    "align": ("whisperx_tpu_torch.alignment", "align"),
 }
 
 __all__ = ["__version__", *_LAZY]

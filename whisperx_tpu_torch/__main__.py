@@ -8,7 +8,7 @@ stages the port does not run yet raise ``NotImplementedError`` naming the
 ROADMAP.md item that brings them (``transcribe.py``).
 
     python -m whisperx_tpu_torch audio.wav --model large-v3 --compute_type int8 \\
-        --vad_method energy --language en --no_align -f all
+        --vad_method energy --language en -f all
 """
 
 import argparse

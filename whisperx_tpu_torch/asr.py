@@ -8,7 +8,10 @@ Counterpart of ``whisperx_tpu/asr.py``. The batched mode:
      (encoder with the K1 attention kernel, cross-KV, prefill, step loop);
   4. temperature fallback re-batches only the chunks that fail the
      compression-ratio / log-prob gates;
-  5. each chunk's tokens are split into timestamped segments.
+  5. each chunk's tokens are split into timestamped segments;
+  6. with ``word_timestamps``, word timing (``timing/``) over every chunk's
+     window, batched, and with ``hallucination_silence_threshold`` the
+     per-chunk eviction of anomalous segments surrounded by silence.
 
 ``transcribe_many`` pools the chunks of many requests into the same device
 batches. Without a VAD, or with ``decode_mode="sequential"`` (the
@@ -24,6 +27,7 @@ from __future__ import annotations
 
 import bisect
 import math
+import os
 import time
 import warnings
 from dataclasses import dataclass, field
@@ -33,6 +37,7 @@ import numpy as np
 import torch
 
 from whisperx_tpu_torch.audio import (
+    FRAMES_PER_SECOND,
     N_FRAMES,
     N_SAMPLES,
     SAMPLE_RATE,
@@ -44,7 +49,10 @@ from whisperx_tpu_torch.audio.device_chunk import DeviceAudio, chunk_mels, uploa
 from whisperx_tpu_torch.decoding import DecodingOptions, get_tokenizer
 from whisperx_tpu_torch.decoding.decode import decode_dispatch, decode_finalize
 from whisperx_tpu_torch.decoding.decode import detect_language as _detect_language
-from whisperx_tpu_torch.decoding.transcribe import split_timestamp_segments
+from whisperx_tpu_torch.decoding.transcribe import (
+    evict_surrounded_anomalies,
+    split_timestamp_segments,
+)
 from whisperx_tpu_torch.decoding.transcribe import transcribe as seq_transcribe
 from whisperx_tpu_torch.types import TranscriptionResult
 from whisperx_tpu_torch.utils.languages import normalize_language
@@ -87,7 +95,6 @@ DEFAULT_VAD_OPTIONS = {
 # option → (value that is supported, what brings the others)
 _LATER = {
     "draft_model": (None, "speculative decoding: ROADMAP.md, Queue 1, item 8"),
-    "word_timestamps": (False, "word timing: ROADMAP.md, Queue 1, item 9"),
 }
 
 
@@ -113,7 +120,8 @@ def warmup_audio(duration_s: float = 65.0) -> np.ndarray:
 
 def _max_decode_rows(model, *, kv_quant: bool, sample_len: Optional[int]) -> int:
     """Max concurrent decode rows (batch × beam/best_of tiles) whose cross-KV +
-    self-KV fit an 8 GiB cache budget (as the JAX package's)."""
+    self-KV fit the cache budget: ``WHISPERX_TPU_KV_HBM_GB`` GiB, 8 unless
+    set, with the JAX package's formula."""
     dims = model.dims
     if sample_len is None:
         sample_len = dims.n_text_ctx // 2
@@ -122,7 +130,8 @@ def _max_decode_rows(model, *, kv_quant: bool, sample_len: Optional[int]) -> int
     per_row = 2 * dims.n_text_layer * dims.n_text_state * (
         1500 * cross_bytes + cache_len * 2
     )
-    return max(1, int(8 * 2**30 // per_row))
+    budget = float(os.environ.get("WHISPERX_TPU_KV_HBM_GB", "8")) * 2**30
+    return max(1, int(budget // per_row))
 
 
 def _sync(device: torch.device) -> None:
@@ -181,12 +190,19 @@ class TranscriptionPipeline:
         language: Optional[str] = None,
         task: Optional[str] = None,
         print_progress: bool = False,
+        combined_progress: bool = False,
         verbose: bool = False,
         initial_prompt: Optional[str] = None,
         **kwargs,
     ) -> TranscriptionResult:
-        # per-call ASR option overrides: keys must exist in
-        # DEFAULT_ASR_OPTIONS; applied to a copy for this call only
+        """``combined_progress`` is accepted for the reference's signature
+        (its progress scale spans transcription and alignment) and changes
+        nothing here, as in JAX.
+
+        Per-call ASR options (``kwargs``, keys of DEFAULT_ASR_OPTIONS) apply
+        to a copy for this call only: ``self.asr_options`` is never touched.
+        JAX swaps them into ``self.asr_options`` for the call's duration
+        (ADVICE r5, asr.py:267); the port keeps the intended behavior."""
         if kwargs:
             unknown = set(kwargs) - set(DEFAULT_ASR_OPTIONS)
             if unknown:
@@ -218,7 +234,10 @@ class TranscriptionPipeline:
             )
             return {
                 "segments": [
-                    {k: s[k] for k in ("start", "end", "text")} for s in result["segments"]
+                    # word_timestamps=True attaches words: keep them
+                    {k: s[k] for k in ("start", "end", "text")}
+                    | ({"words": s["words"]} if "words" in s else {})
+                    for s in result["segments"]
                 ],
                 "language": result["language"],
             }
@@ -369,13 +388,21 @@ class TranscriptionPipeline:
             for seg in segments:
                 g = bisect.bisect_right(group_bases, seg["start"] + 1e-6) - 1
                 r = req_idxs[g]
-                results[r]["segments"].append(
-                    {
-                        **seg,
-                        "start": round(seg["start"] - bases[r], 3),
-                        "end": round(seg["end"] - bases[r], 3),
-                    }
-                )
+                out = {
+                    **seg,
+                    "start": round(seg["start"] - bases[r], 3),
+                    "end": round(seg["end"] - bases[r], 3),
+                }
+                if "words" in seg:
+                    out["words"] = [
+                        {
+                            **w,
+                            "start": round(w["start"] - bases[r], 2),
+                            "end": round(w["end"] - bases[r], 2),
+                        }
+                        for w in seg["words"]
+                    ]
+                results[r]["segments"].append(out)
         return results
 
     def _transcribe_chunks_sequential(
@@ -413,13 +440,31 @@ class TranscriptionPipeline:
                 end_rel = min(seg["end"], win)
                 if end_rel <= seg["start"]:
                     continue
-                segments.append(
-                    {
-                        "start": round(seg["start"] + ch["start"], 3),
-                        "end": round(end_rel + ch["start"], 3),
-                        "text": seg["text"],
-                    }
-                )
+                entry = {
+                    "start": round(seg["start"] + ch["start"], 3),
+                    "end": round(end_rel + ch["start"], 3),
+                    "text": seg["text"],
+                }
+                if "words" in seg:
+                    # chunk-relative words to the file's timeline, clamped
+                    # to the segment's extent; a word that starts at or past
+                    # the clamped end is dropped, as in JAX
+                    entry["words"] = [
+                        {
+                            **w,
+                            **(
+                                {
+                                    "start": round(min(w["start"], end_rel) + ch["start"], 3),
+                                    "end": round(min(w["end"], end_rel) + ch["start"], 3),
+                                }
+                                if "start" in w and "end" in w
+                                else {}
+                            ),
+                        }
+                        for w in seg["words"]
+                        if not ("start" in w and "end" in w and w["start"] >= end_rel)
+                    ]
+                segments.append(entry)
         return segments
 
     @staticmethod
@@ -573,9 +618,11 @@ class TranscriptionPipeline:
         _tracker.observe("tokenizer", time.perf_counter() - _t_tok)
         with_timestamps = not o["without_timestamps"]
 
-        segments = []
+        # each chunk's segments, with the tokens and the window's seek that
+        # word timing reads
+        chunk_segs: List[List[dict]] = [[] for _ in chunks]
         _t_assemble = time.perf_counter()
-        for ch, r in zip(chunks, results):
+        for idx, (ch, r) in enumerate(zip(chunks, results)):
             if r is None:
                 continue
             if (
@@ -587,6 +634,7 @@ class TranscriptionPipeline:
                 )
             ):
                 continue  # silent chunk
+            seek = int(round(ch["start"] * FRAMES_PER_SECOND))
             if with_timestamps and r.tokens:
                 # split the window's tokens into timestamped sub-segments
                 subs, _, _ = split_timestamp_segments(
@@ -605,33 +653,82 @@ class TranscriptionPipeline:
                         continue
                     text = tokenizer.decode(toks).strip()
                     if text:
-                        segments.append(
+                        chunk_segs[idx].append(
                             {
                                 "start": round(ch["start"] + s_rel, 3),
                                 "end": round(ch["start"] + e_rel, 3),
                                 "text": text,
+                                "tokens": toks,
+                                "seek": seek,
                             }
                         )
             else:
                 text = r.text.strip()
                 if text:
-                    segments.append(
+                    chunk_segs[idx].append(
                         {
                             "start": round(ch["start"], 3),
                             "end": round(ch["end"], 3),
                             "text": text,
+                            "tokens": list(r.tokens),
+                            "seek": seek,
                         }
                     )
         _tracker.observe("assemble", time.perf_counter() - _t_assemble)
-        if o.get("hallucination_silence_threshold") is not None:
+        hst = o.get("hallucination_silence_threshold")
+        if o["word_timestamps"]:
+            self._add_words(chunks, chunk_segs, mels, tokenizer, hst)
+        elif hst is not None:
             warnings.warn(
                 "hallucination_silence_threshold requires "
                 "word_timestamps=True; ignoring it."
             )
-        if verbose:
-            for seg in segments:
-                print(f"[{seg['start']:.2f} --> {seg['end']:.2f}] {seg['text']}")
+
+        segments = []
+        for segs in chunk_segs:
+            for seg in segs:
+                if verbose:
+                    print(f"[{seg['start']:.2f} --> {seg['end']:.2f}] {seg['text']}")
+                out = {"start": seg["start"], "end": seg["end"], "text": seg["text"]}
+                if "words" in seg:
+                    out["words"] = seg["words"]
+                segments.append(out)
         return segments
+
+    def _add_words(self, chunks, chunk_segs, mels, tokenizer, hst) -> None:
+        """Word timing over every chunk's window (one teacher-forced capture
+        per group of windows), then, with a hallucination-silence threshold,
+        each chunk's eviction of anomalous segments surrounded by silence.
+        VAD-bounded chunks have nothing to re-seek into, so the decoded tail
+        is kept (``keep_tail``), as in JAX."""
+        from whisperx_tpu_torch.timing import add_word_timestamps_batched
+
+        num_frames = [
+            min(N_FRAMES, int(round((c["end"] - c["start"]) * FRAMES_PER_SECOND)))
+            for c in chunks
+        ]
+        with _tracker.track("word_timing", sum(c["end"] - c["start"] for c in chunks)):
+            add_word_timestamps_batched(
+                chunk_segments=chunk_segs,
+                model=self.model,
+                tokenizer=tokenizer,
+                mels=mels,
+                num_frames_list=num_frames,
+            )
+            _sync(self.device)
+        if hst is None:
+            return
+        for idx, ch in enumerate(chunks):
+            if chunk_segs[idx]:
+                chunk_segs[idx], _ = evict_surrounded_anomalies(
+                    chunk_segs[idx],
+                    threshold=hst,
+                    time_offset=ch["start"],
+                    window_end_time=ch["end"],
+                    segment_duration=ch["end"] - ch["start"],
+                    last_speech_timestamp=ch["start"],
+                    keep_tail=True,
+                )
 
     @staticmethod
     def _needs_fallback(r, o: dict) -> bool:
@@ -656,15 +753,20 @@ class TranscriptionPipeline:
 def load_model(
     whisper_arch: str,
     device: str = "cuda",
+    device_index: int = 0,
     compute_type: str = "bfloat16",
     asr_options: Optional[dict] = None,
     language: Optional[str] = None,
     vad_method: Optional[str] = "silero",
     vad_options: Optional[dict] = None,
     task: str = "transcribe",
+    download_root: Optional[str] = None,
+    local_files_only: bool = False,
+    threads: int = 4,
     backend: str = "auto",
     batch_size: int = 8,
     seed: int = 0,
+    **kwargs,
 ) -> TranscriptionPipeline:
     """Load a Whisper pipeline (API parity: reference asr.py:150-275).
 
@@ -677,6 +779,10 @@ def load_model(
     CUDA). ``vad_method`` None or "none": no VAD, the seek loop over the
     whole file. ``backend`` "sequential" (or "standard"): the seek loop over
     each VAD chunk; anything else the batched decode.
+
+    ``device_index``, ``download_root``, ``local_files_only``, ``threads``
+    and any other keyword are the reference's and are accepted and ignored,
+    as in JAX (``device="cuda:N"`` picks a card; nothing is downloaded).
     """
     from whisperx_tpu_torch.models.whisper import load_model as load_whisper
 

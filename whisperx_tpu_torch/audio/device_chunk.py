@@ -4,11 +4,14 @@ Counterpart of ``whisperx_tpu/audio/device_chunk.py``: the waveform is
 uploaded once (as int16 when that is lossless), the VAD reads the resident
 tensor (``vad/energy.py``), and each merged chunk's window is cut from it on
 the device and fed to the shared log-mel body — the host never touches
-chunk samples. The opt-in μ-law and 12-bit upload codecs come later.
+chunk samples. The opt-in upload codecs of ``WHISPERX_TPU_UPLOAD_COMPAND``
+(``mulaw``: 8-bit μ-law, lossy; ``pack12``: 12-bit linear) encode on the
+host and expand on the device, as in the JAX package.
 """
 
 from __future__ import annotations
 
+import os
 from typing import List, NamedTuple, Optional, Union
 
 import numpy as np
@@ -44,8 +47,74 @@ def _pcm16_exact(padded: np.ndarray) -> Optional[np.ndarray]:
     return None
 
 
+_MU = 255.0
+
+
+def mulaw_encode(padded: np.ndarray) -> np.ndarray:
+    """8-bit μ-law companding (G.711-style): [L] f32 in [-1, 1] → [L] uint8.
+    Lossy (~38 dB SNR on speech-level signals), hence opt-in."""
+    x = np.clip(padded, -1.0, 1.0)
+    y = np.sign(x) * np.log1p(_MU * np.abs(x)) / np.log1p(_MU)
+    return np.round((y + 1.0) * 127.5).astype(np.uint8)
+
+
+def _mulaw_table() -> np.ndarray:
+    """The expansion of each of the 256 codes, in f64, rounded once to f32."""
+    y = np.arange(256, dtype=np.float64) * (2.0 / 255.0) - 1.0
+    return (np.sign(y) * np.expm1(np.abs(y) * np.log1p(_MU)) / _MU).astype(np.float32)
+
+
+_MULAW_TABLE = _mulaw_table()
+
+
+def mulaw_expand(u8: torch.Tensor) -> torch.Tensor:
+    """Device-side inverse companding as a 256-entry table lookup: the
+    upload moves one byte per sample. The table is the formula in f64,
+    rounded once, so every device expands to the same bits; the JAX package
+    evaluates it in f32 with XLA's ``exp`` (within one f32 ulp of this)."""
+    table = torch.from_numpy(_MULAW_TABLE).to(u8.device)
+    return table[u8.long()]
+
+
+def pack12_encode(padded: np.ndarray) -> np.ndarray:
+    """12-bit linear packing: [L] f32 (L even) → [L·3/2] uint8, at 2⁻¹¹
+    amplitude steps (1.33× fewer bytes than int16)."""
+    a = np.clip(np.round(padded * 2048.0), -2048, 2047).astype(np.int32)
+    u = (a & 0xFFF).astype(np.uint16)  # two's complement, 12 bits
+    lo, hi = u[0::2], u[1::2]
+    b0 = lo & 0xFF
+    b1 = (lo >> 8) | ((hi & 0xF) << 4)
+    b2 = hi >> 4
+    return np.stack([b0, b1, b2], axis=1).astype(np.uint8).reshape(-1)
+
+
+def pack12_expand(u8: torch.Tensor) -> torch.Tensor:
+    """Device-side unpack: integer shifts and a sign fold."""
+    b = u8.to(torch.int32)
+    b0, b1, b2 = b[0::3], b[1::3], b[2::3]
+    lo = b0 | ((b1 & 0xF) << 8)
+    hi = (b1 >> 4) | (b2 << 4)
+    lo = torch.where(lo >= 2048, lo - 4096, lo)
+    hi = torch.where(hi >= 2048, hi - 4096, hi)
+    out = torch.empty(lo.shape[0] * 2, dtype=torch.float32, device=u8.device)
+    out[0::2] = lo.to(torch.float32) / 2048.0
+    out[1::2] = hi.to(torch.float32) / 2048.0
+    return out
+
+
+def _compand_mode() -> str:
+    return os.environ.get("WHISPERX_TPU_UPLOAD_COMPAND", "").lower()
+
+
 def to_device(padded: np.ndarray, device: Union[str, torch.device]) -> torch.Tensor:
-    """Upload f32 audio, as int16 (half the bytes) when it is PCM-exact."""
+    """Upload f32 audio: μ-law or 12-bit packed when
+    ``WHISPERX_TPU_UPLOAD_COMPAND`` asks (``mulaw`` / ``pack12``), else as
+    int16 (half the bytes) when it is PCM-exact, else as f32."""
+    mode = _compand_mode()
+    if mode == "mulaw":
+        return mulaw_expand(torch.from_numpy(mulaw_encode(padded)).to(device))
+    if mode == "pack12":
+        return pack12_expand(torch.from_numpy(pack12_encode(padded)).to(device))
     a16 = _pcm16_exact(padded)
     if a16 is not None:
         return torch.from_numpy(a16).to(device).to(torch.float32) / 32768.0

@@ -2,8 +2,9 @@
 
 Decodes arbitrary containers via the ffmpeg CLI when present (parity with
 reference whisperx/audio.py:25-65); without ffmpeg, WAV files go through the
-stdlib ``wave`` reader + ``scipy`` resampler (the JAX package's native C++
-WAV decoder comes to the port later).
+repo's native C++ decoder and resampler (``whisperx_tpu_torch.native``, as
+in the JAX package), and through the stdlib ``wave`` reader + ``scipy``
+resampler when that library cannot be built.
 
 Output contract (all paths): mono float32 in [-1, 1] at the requested sample
 rate, matching ``np.frombuffer(s16le) / 32768.0`` semantics.
@@ -106,7 +107,12 @@ def load_audio(file: str, sr: int = SAMPLE_RATE) -> np.ndarray:
     if _FFMPEG is not None:
         return _load_ffmpeg(file, sr)
     if file.lower().endswith((".wav", ".wave")):
-        return _load_wav(file, sr)
+        try:
+            from whisperx_tpu_torch.native import decode_wav_file
+
+            return decode_wav_file(file, sr)
+        except Exception:
+            return _load_wav(file, sr)
     raise RuntimeError(
         f"Cannot decode {file!r}: ffmpeg is not installed and only WAV/NPY "
         "files are supported by the built-in decoders."

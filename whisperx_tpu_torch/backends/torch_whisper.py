@@ -162,7 +162,11 @@ class SequentialTorchBackend(_TorchBackendBase):
             hallucination_silence_threshold=o.get("hallucination_silence_threshold"),
         )
         return {
-            "segments": [{k: s[k] for k in ("start", "end", "text")} for s in result["segments"]],
+            "segments": [
+                {k: s[k] for k in ("start", "end", "text")}
+                | ({"words": s["words"]} if "words" in s else {})
+                for s in result["segments"]
+            ],
             "language": result["language"],
         }
 

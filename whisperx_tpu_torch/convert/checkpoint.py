@@ -1,5 +1,7 @@
-"""Reader for the checkpoint directories the JAX package writes, and the
-weight bridge from its flat parameter names onto the port's modules.
+"""Reader and writer of the checkpoint directories the JAX package writes,
+and the weight bridges from its flat parameter names onto the port's
+modules (``params_from_numpy`` for Whisper, ``wav2vec2_from_numpy`` for the
+aligner).
 
 A checkpoint directory holds (``whisperx_tpu/convert/checkpoint.py``):
   - ``weights.npz``   : flat ``{"a/b/0/w": array}`` mapping of the param tree
@@ -146,13 +148,19 @@ def params_from_numpy(
         parent, _, leaf = name.rpartition(".")
         setattr(model.get_submodule(parent), leaf, qlin)
     # the full-precision parameters (the quantized tensors are buffers)
+    _copy_params(model, {k: v for k, v in flat.items() if marker not in k}, dtype, dims)
+    return model
+
+
+def _copy_params(model, flat: Dict[str, np.ndarray], dtype: torch.dtype, what) -> None:
+    """Copy ``flat``'s arrays into ``model``'s parameters of the same path,
+    cast to ``dtype``; a missing, unexpected or misshapen name raises."""
     state = dict(model.named_parameters())
     want = {k.replace(".", "/") for k in state}
-    plain = {k for k in flat if marker not in k}
-    missing, extra = want - plain, plain - want
+    missing, extra = want - set(flat), set(flat) - want
     if missing or extra:
         raise KeyError(
-            f"checkpoint does not match {dims}: missing {sorted(missing)[:5]}, "
+            f"checkpoint does not match {what}: missing {sorted(missing)[:5]}, "
             f"unexpected {sorted(extra)[:5]}"
         )
     for key, tensor in state.items():
@@ -162,7 +170,37 @@ def params_from_numpy(
                 f"{key}: checkpoint shape {arr.shape}, model {tuple(tensor.shape)}"
             )
         tensor.copy_(torch.tensor(arr).to(dtype))  # a copy: arr may be read-only
-    return model
+
+
+@torch.no_grad()
+def wav2vec2_from_numpy(
+    flat: Dict[str, np.ndarray],
+    config,
+    dtype: torch.dtype = torch.float32,
+    device: Union[str, torch.device] = "cuda",
+):
+    """Build a ``Wav2Vec2`` from the JAX package's flat wav2vec2 parameters
+    (``feature_extractor/0/w``, ``layers/3/attn/query/w``, …). Converted
+    large checkpoints carry a bias on each feature convolution; the module
+    gets one when the names have it."""
+    from whisperx_tpu_torch.models.wav2vec2 import Wav2Vec2
+
+    conv_bias = any(
+        k.startswith("feature_extractor/") and k.count("/") == 2 and k.endswith("/b")
+        for k in flat
+    )
+    model = Wav2Vec2(config, conv_bias=conv_bias, dtype=dtype, device=device)
+    _copy_params(model, flat, dtype, config)
+    return model.eval()
+
+
+def save_checkpoint(path: str, model, config: dict) -> None:
+    """Write a port module's weights and ``config`` in the JAX package's
+    layout: ``weights.npz`` of ``flatten_tree`` names, and ``config.json``."""
+    os.makedirs(path, exist_ok=True)
+    np.savez(os.path.join(path, "weights.npz"), **flatten_tree(model))
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(config, f, indent=2)
 
 
 def read_checkpoint(path: str) -> Tuple[Dict[str, np.ndarray], dict]:

@@ -16,6 +16,7 @@ host sync per token. Capturing the step in a CUDA graph is a later change.
 from __future__ import annotations
 
 import dataclasses
+import os
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple, Union
 
@@ -389,7 +390,9 @@ def decode_dispatch(
         ),
         without_timestamps=options.without_timestamps,
         greedy=options.temperature == 0,
-        kv_quant=options.kv_quant,
+        # WHISPERX_TPU_KV_QUANT=int8 forces the int8 cross-KV cache, as in JAX
+        kv_quant=options.kv_quant
+        or os.environ.get("WHISPERX_TPU_KV_QUANT") == "int8",
     )
 
     audio_in = shared_features if shared_features is not None else mel

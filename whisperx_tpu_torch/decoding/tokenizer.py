@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import functools
 import os
+import string
 from dataclasses import dataclass, field
 from typing import List, Optional, Sequence, Tuple
 
@@ -173,6 +174,18 @@ class Tokenizer:
     def decode(self, tokens: Sequence[int]) -> str:
         return self.vocab.decode([t for t in tokens if t < self.eot])
 
+    def decode_with_timestamps(self, tokens: Sequence[int]) -> str:
+        parts, run = [], []
+        for t in tokens:
+            if t >= self.timestamp_begin:
+                parts.append(self.decode(run))
+                run = []
+                parts.append(f"<|{(t - self.timestamp_begin) * 0.02:.2f}|>")
+            else:
+                run.append(t)
+        parts.append(self.decode(run))
+        return "".join(parts)
+
     # -- specials ----------------------------------------------------------
 
     @property
@@ -222,6 +235,49 @@ class Tokenizer:
                     if tokens[0] != space_id:  # never ban the space token
                         result.add(tokens[0])
         return tuple(sorted(result))
+
+    # -- word splitting (used by timing.add_word_timestamps) ---------------
+
+    def split_to_word_tokens(self, tokens: Sequence[int]):
+        if self.language in {"zh", "ja", "th", "lo", "my", "yue"}:
+            return self._split_tokens_on_unicode(tokens)
+        return self._split_tokens_on_spaces(tokens)
+
+    def _split_tokens_on_unicode(self, tokens: Sequence[int]):
+        decoded_full = self.decode_with_timestamps(tokens)
+        replacement = "\ufffd"
+        words, word_tokens = [], []
+        current: List[int] = []
+        unicode_offset = 0
+        for token in tokens:
+            current.append(token)
+            decoded = self.decode_with_timestamps(current)
+            ok = (
+                replacement not in decoded
+                or decoded_full[unicode_offset + decoded.index(replacement)]
+                == replacement
+            )
+            if ok:
+                words.append(decoded)
+                word_tokens.append(current)
+                current = []
+                unicode_offset += len(decoded)
+        return words, word_tokens
+
+    def _split_tokens_on_spaces(self, tokens: Sequence[int]):
+        subwords, subword_tokens = self._split_tokens_on_unicode(tokens)
+        words, word_tokens = [], []
+        for sw, swt in zip(subwords, subword_tokens):
+            special = swt[0] >= self.eot
+            with_space = sw.startswith(" ")
+            punctuation = sw.strip() in string.punctuation
+            if special or with_space or punctuation or not words:
+                words.append(sw)
+                word_tokens.append(swt)
+            else:
+                words[-1] += sw
+                word_tokens[-1].extend(swt)
+        return words, word_tokens
 
 
 def get_tokenizer(

@@ -10,7 +10,12 @@ Counterpart of ``whisperx_tpu/decoding/transcribe.py``, with its semantics
     log-probability, where confident silence never climbs the ladder;
   - no-speech gating, ``condition_on_previous_text`` with the prompt reset
     at temperatures above 0.5;
-  - timestamp-token parsing into sub-segments and seek advancement.
+  - timestamp-token parsing into sub-segments and seek advancement;
+  - with ``word_timestamps``, DTW word timing of each window (``timing/``),
+    the seek resumed at the last word's end, and with
+    ``hallucination_silence_threshold`` the skip of anomalous segments
+    conjured from silence (whisper's heuristics, through the anomaly helpers
+    below).
 
 Each window decodes at the options' ``kv_quant`` (off unless asked, as in
 JAX): the seek loop's cross-KV stays in the model's dtype and never takes
@@ -18,13 +23,8 @@ the int8 cross-decode route (K3). Sampling at a temperature above 0 draws
 from a ``torch.Generator`` seeded with ``seed`` at every decode, as JAX
 starts every decode from ``PRNGKey(0)``; the two generators' numbers differ.
 
-Word timestamps and the hallucination-silence skip need word timing
-(ROADMAP.md, Queue 1, item 9): ``word_timestamps=True`` raises, and
-``hallucination_silence_threshold`` without words warns and is ignored, as in
-JAX. The anomaly helpers that skip reads (``_word_anomaly_score``,
-``_is_segment_anomaly``, ``_next_words_segment``,
-``evict_surrounded_anomalies``, ``_last_word_end``) are pure functions and
-are ported with this module.
+``hallucination_silence_threshold`` without word timestamps warns and is
+ignored, as in JAX.
 
 Returns ``{"text", "segments": [{id, seek, start, end, text, tokens,
 temperature, avg_logprob, compression_ratio, no_speech_prob}], "language"}``.
@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from whisperx_tpu_torch.audio import (
+    FRAMES_PER_SECOND,
     HOP_LENGTH,
     N_FRAMES,
     N_SAMPLES,
@@ -49,8 +50,6 @@ from whisperx_tpu_torch.audio import (
 from whisperx_tpu_torch.decoding.decode import DecodingOptions, DecodingResult, decode
 from whisperx_tpu_torch.decoding.tokenizer import get_tokenizer
 from whisperx_tpu_torch.utils.languages import normalize_language
-
-_WORD_TIMING = "word timing: ROADMAP.md, Queue 1, item 9"
 
 
 def _decode_with_fallback(
@@ -178,11 +177,7 @@ def transcribe(
     seed: int = 0,
     **decode_options,
 ) -> dict:
-    if word_timestamps:
-        raise NotImplementedError(
-            f"word_timestamps=True is not ported yet ({_WORD_TIMING})"
-        )
-    if hallucination_silence_threshold is not None:
+    if hallucination_silence_threshold is not None and not word_timestamps:
         warnings.warn(
             "hallucination_silence_threshold requires word_timestamps=True;"
             " ignoring it."
@@ -199,6 +194,7 @@ def transcribe(
         audio, model.dims.n_mels, padding=N_SAMPLES, device=model.device
     )
     content_frames = mel_full.shape[-1] - N_FRAMES
+    content_duration = content_frames * HOP_LENGTH / SAMPLE_RATE
 
     language = normalize_language(language)
     if language is None:
@@ -245,6 +241,7 @@ def transcribe(
         all_tokens.extend(initial_prompt_tokens)
 
     seek = 0
+    last_speech_timestamp = 0.0
 
     def new_segment(start, end, tokens, result: DecodingResult):
         tokens = [t for t in tokens]
@@ -305,7 +302,8 @@ def transcribe(
                 seek += segment_size
                 continue
 
-        raw_segments, seek_advance, _ = split_timestamp_segments(
+        previous_seek = seek
+        raw_segments, seek_advance, single_timestamp_ending = split_timestamp_segments(
             tokens,
             timestamp_begin=tokenizer.timestamp_begin,
             segment_size=segment_size,
@@ -317,6 +315,78 @@ def transcribe(
             for s, e, toks in raw_segments
         ]
         seek += seek_advance
+
+        if word_timestamps:
+            from whisperx_tpu_torch.timing import add_word_timestamps
+
+            # the PREVIOUS window's last speech is the gap baseline of both
+            # word timing and the hallucination filter
+            prev_speech_timestamp = last_speech_timestamp
+            add_word_timestamps(
+                segments=current_segments,
+                model=model,
+                tokenizer=tokenizer,
+                mel=mel_in,
+                num_frames=segment_size,
+                prepend_punctuations=prepend_punctuations,
+                append_punctuations=append_punctuations,
+                last_speech_timestamp=prev_speech_timestamp,
+            )
+
+            # word ends are finer than timestamp tokens: when the window ends
+            # mid-segment, resume exactly where speech stopped
+            if not single_timestamp_ending:
+                last_word_end = _last_word_end(current_segments)
+                if last_word_end is not None and last_word_end > time_offset:
+                    seek = round(last_word_end * FRAMES_PER_SECOND)
+
+            if hallucination_silence_threshold is not None:
+                threshold = hallucination_silence_threshold
+                window_end_time = (previous_seek + N_FRAMES) * time_per_frame
+                segment_duration = segment_size * time_per_frame
+
+                # a trailing unconsumed region longer than the threshold is
+                # silence worth re-seeking into; shorter, the window is spent
+                if not single_timestamp_ending:
+                    last_word_end = _last_word_end(current_segments)
+                    if last_word_end is not None and last_word_end > time_offset:
+                        remaining = window_end_time - last_word_end
+                        if remaining > threshold:
+                            seek = round(last_word_end * FRAMES_PER_SECOND)
+                        else:
+                            seek = previous_seek + segment_size
+
+                # an anomalous FIRST segment after a long leading gap is a
+                # hallucination conjured from silence: skip the gap and
+                # re-decode from where it claimed to start
+                first_segment = _next_words_segment(current_segments)
+                if first_segment is not None and _is_segment_anomaly(first_segment):
+                    gap = first_segment["start"] - time_offset
+                    if gap > threshold:
+                        seek = previous_seek + round(gap * FRAMES_PER_SECOND)
+                        continue
+
+                # evict an anomalous segment surrounded by silence (or by more
+                # anomalies) and all after it, then re-seek to just before it,
+                # at least 1 s further on
+                kept, evicted = evict_surrounded_anomalies(
+                    current_segments,
+                    threshold=threshold,
+                    time_offset=time_offset,
+                    window_end_time=window_end_time,
+                    segment_duration=segment_duration,
+                    last_speech_timestamp=prev_speech_timestamp,
+                )
+                if evicted is not None:
+                    seek = round(max(time_offset + 1, evicted["start"]) * FRAMES_PER_SECOND)
+                    if content_duration - evicted["end"] < threshold:
+                        seek = content_frames
+                    current_segments = kept
+
+            # the speech baseline advances from the surviving segments only
+            last_word_end = _last_word_end(current_segments)
+            if last_word_end is not None:
+                last_speech_timestamp = last_word_end
 
         if verbose:
             for segment in current_segments:

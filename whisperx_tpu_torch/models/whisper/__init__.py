@@ -67,11 +67,13 @@ def load_model(
                 stacklevel=2,
             )
             vocab = default_partial_vocab_path()
-        model, _ = load_checkpoint(
+        model, config = load_checkpoint(
             name_or_path, dtype, dev,
             name=os.path.basename(os.path.normpath(name_or_path)),
             vocab_path=vocab if os.path.exists(vocab) else None,
         )
+        if config.get("alignment_heads"):  # the published mask, when converted
+            model.alignment_heads = [tuple(x) for x in config["alignment_heads"]]
         return model.eval()
 
     name = resolve_model_name(name_or_path)

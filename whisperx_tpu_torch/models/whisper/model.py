@@ -26,8 +26,9 @@ it step by step so that f32 runs agree with the JAX package to rounding:
 from __future__ import annotations
 
 import math
+import os
 from dataclasses import dataclass
-from typing import List, NamedTuple, Optional, Tuple, Union
+from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -39,6 +40,7 @@ from whisperx_tpu_torch.ops.cross_attention_decode import (
     cross_attention_decode,
     use_cross_decode_kernel,
 )
+from whisperx_tpu_torch.ops import refuse_xla_route
 from whisperx_tpu_torch.ops.flash_attention import flash_attention
 from whisperx_tpu_torch.quant.core import QuantizedLinear, quant_linear_apply
 from whisperx_tpu_torch.utils.precision import reference_matmul
@@ -140,7 +142,9 @@ class TextDecoder(nn.Module):
 
 class Whisper(nn.Module):
     """Dims + encoder + decoder + the metadata the pipeline reads
-    (``is_multilingual``, ``num_languages``, ``vocab_path``)."""
+    (``is_multilingual``, ``num_languages``, ``vocab_path``, and the
+    ``alignment_heads`` word timing reads: a checkpoint's published mask, or
+    JAX's default of every head of the upper half of the decoder)."""
 
     def __init__(
         self,
@@ -150,11 +154,19 @@ class Whisper(nn.Module):
         device: Union[str, torch.device] = "cuda",
         name: str = "custom",
         vocab_path: Optional[str] = None,
+        alignment_heads: Optional[Sequence[Tuple[int, int]]] = None,
     ):
         super().__init__()
         self.dims = dims
         self.name = name
         self.vocab_path = vocab_path
+        if alignment_heads is None:
+            alignment_heads = [
+                (layer, head)
+                for layer in range(dims.n_text_layer // 2, dims.n_text_layer)
+                for head in range(dims.n_text_head)
+            ]
+        self.alignment_heads = [tuple(x) for x in alignment_heads]
         self.encoder = AudioEncoder(dims, dtype=dtype, device=device)
         self.decoder = TextDecoder(dims, dtype=dtype, device=device)
 
@@ -285,7 +297,12 @@ def qkv_attention(
     k: torch.Tensor,  # [B, Tk, H, Dh]
     v: torch.Tensor,  # [B, Tk, H, Dh]
     mask: Optional[torch.Tensor] = None,  # broadcastable to [B, H, Tq, Tk]
-) -> torch.Tensor:
+    return_weights: bool = False,
+):
+    """The attention output [B, Tq, H, Dh]; with ``return_weights`` the pair
+    (output, the PRE-softmax scaled scores [B, H, Tq, Tk] in f32), as JAX's
+    ``qkv_attention(return_weights=True)``: word timing re-normalises the
+    raw scores over a truncated frame range."""
     dh = q.shape[-1]
     scale = dh**-0.25
     qf = q * scale
@@ -295,7 +312,8 @@ def qkv_attention(
         scores = scores + mask
     weights = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", weights.to(v.dtype).float(), v.float())
-    return out.to(v.dtype)
+    out = out.to(v.dtype)
+    return (out, scores) if return_weights else out
 
 
 # ---------------------------------------------------------------------------
@@ -325,7 +343,12 @@ def _conv1d(p: Conv1d, x: torch.Tensor, stride: int) -> torch.Tensor:
 def encoder_forward(
     enc: AudioEncoder, mel: torch.Tensor, n_head: int
 ) -> torch.Tensor:
-    """mel: [B, T=3000, n_mels] in the model dtype → features [B, 1500, d]."""
+    """mel: [B, T=3000, n_mels] in the model dtype → features [B, 1500, d].
+    ``WHISPERX_TPU_FLASH`` other than 1 (JAX: the XLA attention) raises on
+    CUDA (``ops.refuse_xla_route``)."""
+    refuse_xla_route(
+        "WHISPERX_TPU_FLASH", os.environ.get("WHISPERX_TPU_FLASH", "1") != "1", mel
+    )
     x = _gelu(_conv1d(enc.conv1, mel, stride=1))
     x = _gelu(_conv1d(enc.conv2, x, stride=2))
     x = x + enc.pos_emb[None, : x.shape[1]]
@@ -435,7 +458,9 @@ def decoder_forward(
     offset: int,  # number of tokens already in the cache
     n_head: int,
     beam_groups: int = 1,
-) -> torch.Tensor:
+    capture_cross_qk: bool = False,
+    capture_heads: Optional[Sequence[Tuple[int, int]]] = None,
+):
     """One decoder pass over T_new tokens starting at ``offset``; writes the
     new self-attention K/V into ``cache`` and returns the logits
     [B, T_new, vocab] in f32.
@@ -444,7 +469,15 @@ def decoder_forward(
     K rows sharing one audio, and ``cache.cross_k/v`` hold the untiled
     [B, 1500, H, Dh] K/V. Cross-attention is independent per query, so the K
     beams fold into the query axis ([B·K, T, H, D] → [B, K·T, H, D]) and
-    attend against one copy; the self-attention cache stays per beam."""
+    attend against one copy; the self-attention cache stays per beam.
+
+    ``capture_cross_qk`` (word timing, with a cross-KV in the model's dtype):
+    returns ``(logits, qk)``, ``qk`` the pre-softmax cross-attention scores
+    of every layer, [n_layer, B, H, T_new, 1500] f32, as JAX's
+    ``decoder_forward(capture_cross_qk=True)``; with ``capture_heads``, a
+    list of (layer, head), only those planes, [A, B, T_new, 1500], taken
+    layer by layer so the other heads' scores are never held together."""
+    assert not (capture_cross_qk and beam_groups > 1), "the capture is per row"
     b, t_new = tokens.shape
     cache_len = cache.self_k[0].shape[1]
     device = tokens.device
@@ -458,7 +491,11 @@ def decoder_forward(
     self_mask = torch.zeros((t_new, cache_len), dtype=torch.float32, device=device)
     self_mask.masked_fill_(k_pos > positions[:, None], float("-inf"))
     # the cross-decode opt-in, read once per pass (JAX reads it per layer)
-    use_k3 = t_new == 1 and beam_groups == 1 and use_cross_decode_kernel(device)
+    use_k3 = (
+        t_new == 1 and beam_groups == 1 and not capture_cross_qk
+        and use_cross_decode_kernel(device)
+    )
+    captured = {}  # (layer, head) → [B, T_new, 1500], or layer → [B, H, T_new, 1500]
 
     for i, blk in enumerate(dec.blocks):
         h = layer_norm(blk.attn_ln, x)
@@ -474,11 +511,20 @@ def decoder_forward(
 
         h = layer_norm(blk.cross_attn_ln, x)
         cq = _split_heads(linear(blk.cross_attn.query, h), n_head)
-        if beam_groups > 1:  # fold the beams into the query axis
-            cq = cq.reshape(b // beam_groups, beam_groups * t_new, n_head, -1)
-        cattn = _cross_attention(cq, cache.cross_k[i], cache.cross_v[i], use_k3)
-        if beam_groups > 1:  # unfold back to per-beam rows
-            cattn = cattn.reshape(b, t_new, n_head, -1)
+        if capture_cross_qk:
+            cattn, qk = qkv_attention(
+                cq, cache.cross_k[i], cache.cross_v[i], return_weights=True
+            )
+            if capture_heads is None:
+                captured[i] = qk
+            else:
+                captured.update(((i, hd), qk[:, hd]) for layer, hd in capture_heads if layer == i)
+        else:
+            if beam_groups > 1:  # fold the beams into the query axis
+                cq = cq.reshape(b // beam_groups, beam_groups * t_new, n_head, -1)
+            cattn = _cross_attention(cq, cache.cross_k[i], cache.cross_v[i], use_k3)
+            if beam_groups > 1:  # unfold back to per-beam rows
+                cattn = cattn.reshape(b, t_new, n_head, -1)
         x = x + linear(blk.cross_attn.out, _merge_heads(cattn))
 
         h = layer_norm(blk.mlp_ln, x)
@@ -486,4 +532,8 @@ def decoder_forward(
         x = x + linear(blk.mlp2, h)
 
     x = layer_norm(dec.ln, x)
-    return _dot_f32(x, dec.tok_emb.T)
+    logits = _dot_f32(x, dec.tok_emb.T)
+    if not capture_cross_qk:
+        return logits
+    keys = range(len(dec.blocks)) if capture_heads is None else map(tuple, capture_heads)
+    return logits, torch.stack([captured[k] for k in keys])

@@ -1,1 +1,19 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain PyTorch version."""
+
+import os
+
+
+def refuse_xla_route(switch: str, asked: bool, tensor) -> None:
+    """The JAX package's ``WHISPERX_TPU_FLASH=0`` and
+    ``WHISPERX_TPU_NO_PALLAS_QUANT`` send its work to XLA instead of the
+    Pallas kernel. The port has no such route: a CUDA tensor launches the
+    kernel or raises. So on a CUDA tensor the switch raises; on a CPU
+    tensor, which runs the kernel's plain version anyway, it changes
+    nothing."""
+    if asked and tensor.is_cuda:
+        raise ValueError(
+            f"{switch}={os.environ.get(switch)!r} asks for the JAX package's "
+            "XLA route instead of the kernel; the port has none: a CUDA tensor "
+            "launches the hand-written kernel or raises (ROADMAP.md, "
+            "\"Kernels\"). Unset it, or run on the CPU."
+        )

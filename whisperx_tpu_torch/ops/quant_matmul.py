@@ -26,9 +26,11 @@ device — that is int4's route, not a fallback.
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
 
+from whisperx_tpu_torch.ops import refuse_xla_route
 from whisperx_tpu_torch.utils.precision import reference_matmul
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -174,6 +176,11 @@ def quant_matmul(x: torch.Tensor, qp) -> torch.Tensor:
             else:
                 y = torch.matmul(x2.float(), w.float()).to(x.dtype)
     else:
+        # JAX: the XLA dequant-dot instead of the kernel; here it raises on CUDA
+        refuse_xla_route(
+            "WHISPERX_TPU_NO_PALLAS_QUANT",
+            bool(os.environ.get("WHISPERX_TPU_NO_PALLAS_QUANT")), x2,
+        )
         y = int8_matmul(x2.contiguous(), qp.qw, qp.scale, qp.group_size)
     return y.reshape(*lead, -1)
 

@@ -1,10 +1,11 @@
-"""CLI orchestrator: VAD and ASR over every input file, then the writers.
+"""CLI orchestrator: VAD and ASR over every input file, forced alignment,
+then the writers.
 
 Counterpart of ``whisperx_tpu/transcribe.py`` (reference
-whisperx/transcribe.py:17-250). The JAX package's alignment and diarization
-phases are not ported yet: their flags raise ``NotImplementedError`` naming
-the ROADMAP.md item that brings them, before anything is loaded, as do the
-other flags of stages the port does not run.
+whisperx/transcribe.py:17-250). The JAX package's diarization phase is not
+ported yet: its flags raise ``NotImplementedError`` naming the ROADMAP.md
+item that brings them, before anything is loaded, as do the other flags of
+stages the port does not run.
 """
 
 from __future__ import annotations
@@ -31,15 +32,7 @@ _SUBTITLE_FLAGS = ("highlight_words", "max_line_count", "max_line_width")
 
 # (flag, predicate on the parsed flags, what brings it)
 _NOT_PORTED = (
-    ("alignment (drop it with --no_align)",
-     lambda a: not (a["no_align"] or a["task"] == "translate"),
-     "forced alignment: ROADMAP.md, Queue 1, item 11"),
     ("--diarize", lambda a: a["diarize"], "diarization: ROADMAP.md, Queue 1, item 12"),
-    ("--word_timestamps True", lambda a: a["word_timestamps"],
-     "word timing: ROADMAP.md, Queue 1, item 9"),
-    ("--hallucination_silence_threshold",
-     lambda a: a["hallucination_silence_threshold"] is not None,
-     "word timing: ROADMAP.md, Queue 1, item 9"),
     ("--draft_model", lambda a: a["draft_model"] is not None,
      "speculative decoding: ROADMAP.md, Queue 1, item 8"),
     ("--vad_method pyannote/hybrid", lambda a: a["vad_method"] in ("pyannote", "hybrid"),
@@ -89,6 +82,7 @@ def transcribe_task(args: dict, parser: argparse.ArgumentParser):
     and return the pipeline it built, so an in-process caller can inspect
     the model and its kernels' launch counts."""
     _check_ported(args)
+    from whisperx_tpu_torch.alignment import align, load_align_model
     from whisperx_tpu_torch.asr import load_model
     from whisperx_tpu_torch.audio import load_audio
 
@@ -110,9 +104,13 @@ def transcribe_task(args: dict, parser: argparse.ArgumentParser):
 
     os.makedirs(output_dir, exist_ok=True)
 
+    align_model_name = take("align_model")
+    interpolate_method = take("interpolate_method")
+    no_align = take("no_align")
     task = take("task")
+    no_align = no_align or task == "translate"  # translations can't align
+    return_char_alignments = take("return_char_alignments")
     for unused in (
-        "align_model", "interpolate_method", "no_align", "return_char_alignments",
         "hf_token", "diarize", "min_speakers", "max_speakers", "diarize_model",
         "diarize_clustering", "data_parallel",
     ):
@@ -130,7 +128,7 @@ def transcribe_task(args: dict, parser: argparse.ArgumentParser):
         take(ignored, None)  # accepted for CLI parity, no-ops as in JAX
 
     args["language"] = _canonical_language(args["language"], model_name)
-    language = args["language"] or "en"
+    align_language = args["language"] or "en"
 
     asr_options = {f: take(f) for f in _ASR_FLAG_FIELDS}
     asr_options.update(
@@ -145,10 +143,12 @@ def transcribe_task(args: dict, parser: argparse.ArgumentParser):
     asr_options["word_timestamps"] = word_timestamps
 
     writer = get_writer(output_format, output_dir)
-    # alignment is not ported, so every run is an unaligned one
-    for flag in _SUBTITLE_FLAGS:
-        if args[flag]:
-            parser.error(f"--{flag} requires alignment (drop --no_align)")
+    if no_align:
+        for flag in _SUBTITLE_FLAGS:
+            if args[flag]:
+                parser.error(f"--{flag} requires alignment (drop --no_align)")
+    if args["max_line_count"] and not args["max_line_width"]:
+        warnings.warn("--max_line_count does nothing unless --max_line_width is set")
     writer_args = {flag: take(flag) for flag in _SUBTITLE_FLAGS}
 
     # Part 1: VAD & ASR over every input file.
@@ -156,9 +156,10 @@ def transcribe_task(args: dict, parser: argparse.ArgumentParser):
         model_name if model_dir is None else os.path.join(model_dir, model_name)
     )
     t0 = time.perf_counter()
+    torch_device = _torch_device(device, device_index)
     model = load_model(
         model_path,
-        device=_torch_device(device, device_index), compute_type=compute_type,
+        device=torch_device, compute_type=compute_type,
         language=args["language"], task=task, asr_options=asr_options,
         vad_method=vad_method, vad_options=vad_options,
         backend=backend, batch_size=batch_size,
@@ -182,10 +183,47 @@ def transcribe_task(args: dict, parser: argparse.ArgumentParser):
             print_progress=print_progress, verbose=verbose,
         )
 
-    # Part 2: write outputs.
+    # Part 2: forced alignment, on the same device.
+    if not no_align:
+        align_model, align_metadata = load_align_model(
+            align_language, torch_device, model_name=align_model_name
+        )
+        if align_metadata.get("random_weights") and not os.environ.get(
+            "WHISPERX_TPU_ALLOW_RANDOM_ALIGN"
+        ):
+            # garbage timings are worse than none: skip instead of emitting
+            print(
+                ">>Skipping alignment: no converted wav2vec2 checkpoint for "
+                f"language {align_language!r} (run whisperx_tpu.convert, or "
+                "set WHISPERX_TPU_ALLOW_RANDOM_ALIGN=1 to force)."
+            )
+            align_model = None
+        for audio_path, result in results.items():
+            if align_model is None or not result["segments"]:
+                continue
+            if result.get("language", "en") != align_metadata["language"]:
+                print(
+                    f"New language found ({result['language']})! Previous was "
+                    f"({align_metadata['language']}), loading new alignment model..."
+                )
+                # the NEW language's default model (an --align_model pinned
+                # for the first language would be wrong here), as in JAX
+                align_model, align_metadata = load_align_model(
+                    result["language"], torch_device
+                )
+            print(">>Performing alignment...")
+            results[audio_path] = align(
+                result["segments"], align_model, align_metadata,
+                audio_path, torch_device,
+                interpolate_method=interpolate_method,
+                return_char_alignments=return_char_alignments,
+                print_progress=print_progress,
+            )
+
+    # Part 3: write outputs.
     for audio_path, result in results.items():
         result = dict(result)
-        result.setdefault("language", language)
+        result.setdefault("language", align_language)
         writer(result, audio_path, writer_args)
 
     if log_json:
