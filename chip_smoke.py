@@ -58,10 +58,29 @@ Phases, each of which passes or raises (the script then exits non-zero):
      per shape as the code implies; K4's device time per CLI run (Σ
      launches × ms per shape) against its floor (Σ launches × bound); then
      the decode profile of phase 5 for that int8 model with 5 beams;
+  8. speculative decoding (after 5b, on the main path's model and 120 s):
+     ``transcribe(..., draft_model="self:4", spec_gamma=4)`` at one
+     temperature, then the same with a ``zero_tail_model(model, 4)`` target
+     (acceptance ≈ 1), and a plain greedy decode with ``kv_quant=False``:
+     decode wall time, target passes, proposed, accepted, tokens emitted,
+     ms per emitted token; K1 32 × the decodes (the draft shares the
+     encoder); the share of rows equal to greedy's is printed;
+  8b. speculative int8 (after 6, on its int8 model and the CLI's 60 s,
+     48 tokens a row): ``self:4``; K4's launches per shape as the code implies (draft steps
+     at M 8, verify passes at M 40), Σ launches × ms against the bound;
+  9. VADs: Silero (2 × LSTM 64) and PyanNet (the default config) with
+     seeded random weights written by ``save_checkpoint`` and loaded with
+     ``load_vad_model`` by path, over 120 s: device time of each forward
+     (CUDA events), CUDA against CPU (Silero's probabilities within 1e-5,
+     PyanNet's log-scores within 1e-4, TF32 off), the same segments; and
+     ``BatchVADProcessor`` over ``transcribe_many``'s three requests in one
+     call;
   7. small model: f32 ``test-nano`` through the same pipeline on CUDA and on
      the CPU with the same weights; segments and greedy tokens must match,
      and the seek loop's segments and tokens too, and the words of word
-     timing (text, start, end); ``WHISPERX_TPU_FLASH=0`` raises on CUDA;
+     timing (text, start, end); speculative tokens (``self:1``, γ 2) equal
+     the CUDA greedy ones and the CPU's; the pyannote and hybrid VADs give
+     the same segments on both; ``WHISPERX_TPU_FLASH=0`` raises on CUDA;
      then quantized to int8, its greedy and beam-2 tokens must match too,
      and ``WHISPERX_TPU_NO_PALLAS_QUANT`` raises on CUDA.
 
@@ -119,6 +138,9 @@ STEP_LOGIT_TOL = 0.1
 # the order of f32 sums differs, ~1e-5 after 12 layers; TF32 would give ~1e-3
 EMISSION_TOL = 1e-3
 SEQ_WORDS_SAMPLE_LEN = 48  # tokens a window, for the seek loop with words
+# tokens a row in the speculative int8 phase: every K4 shape and count of
+# the path at a fifth of the full decode's time
+SPEC_INT8_SAMPLE_LEN = 48
 # an aligned char ends one emission frame (duration / (frames - 1) s, ~0.02)
 # after its last frame, so an aligned segment may end that much after its
 # transcript segment, and after the audio, as in JAX
@@ -562,11 +584,15 @@ def quant_case(m, k, n, dtype, group_size=64, seed=0):
 
 # K4's shapes on the int8 CLI path (large-v3, group 64): the weights (K, N)
 # of a quantized decoder block (self q/k/v/out and cross q/out; mlp1; mlp2)
-# at the rows of each call: a greedy or beam-5 decode step over 8 slots, the
-# beam-5 prefill of the 3-token prompt, the cross-KV projection of 8 × 1500
-# frames (cross key and value only)
+# at the rows of each call: a greedy or beam-5 decode step over 8 slots (the
+# speculative draft's one-token passes and its verify passes of γ+1 = 5
+# tokens have the same rows), the beam-5 prefill of the 3-token prompt, the
+# cross-KV projection of 8 × 1500 frames (cross key and value only)
 K4_WEIGHTS = ((1280, 1280), (1280, 5120), (5120, 1280))
-K4_ROWS = (("decode greedy", 8), ("decode beam 5", 40), ("prefill beam 5", 120), ("cross-KV", 12000))
+K4_ROWS = (
+    ("decode greedy, speculative draft step", 8), ("decode beam 5, speculative verify", 40),
+    ("prefill beam 5", 120), ("cross-KV", 12000),
+)
 
 
 def same_bits(label, a, b) -> None:
@@ -1455,6 +1481,7 @@ def phase_small_model() -> None:
     from whisperx_tpu_torch.convert.checkpoint import flatten_tree, params_from_numpy
     from whisperx_tpu_torch.decoding import DecodingOptions
     from whisperx_tpu_torch.decoding.decode import decode
+    from whisperx_tpu_torch.decoding.speculative import SpeculativeDecoder, truncated_self_draft
     from whisperx_tpu_torch.decoding.transcribe import transcribe as seq_transcribe
     from whisperx_tpu_torch.ops.quant_matmul import quant_matmul
     from whisperx_tpu_torch.quant import QuantizedLinear, quantize_model
@@ -1545,6 +1572,38 @@ def phase_small_model() -> None:
         )
     assert quant_matmul.launches > 0
     print(f"[small] K4 (f32) launched {quant_matmul.launches} times on cuda")
+    # speculative decoding: a self:1 draft (γ 2) gives the greedy tokens of
+    # the same device with the cross-KV unquantized, as the speculative
+    # path keeps it. Across devices that greedy decode may differ at an f32
+    # near-tie of random weights (the int8 cross-KV's above does not), so
+    # cuda against cpu is printed
+    spec_toks, rates = {}, {}
+    for dev, p in pipes.items():
+        spec = SpeculativeDecoder(p.model, truncated_self_draft(p.model, 1), gamma=2)
+        opts = DecodingOptions(language="en")
+        spec_toks[dev] = [r.tokens for r in spec.decode_batch_finalize(spec.decode_batch_dispatch(mels.to(dev), opts))]
+        greedy = [r.tokens for r in decode(p.model, mels.to(dev), DecodingOptions(language="en", kv_quant=False))]
+        assert spec_toks[dev] == greedy, (dev, spec_toks[dev], greedy)
+        rates[dev] = spec.stats.acceptance_rate
+    print(
+        f"[small] test-nano f32 speculative (self:1, gamma 2): {len(chunks)} chunks with the greedy "
+        f"tokens of the same device ({sum(map(len, spec_toks['cuda']))} tokens on cuda; acceptance "
+        f"{rates['cuda']:.3f} cuda, {rates['cpu']:.3f} cpu); cuda tokens equal the cpu's: "
+        f"{spec_toks['cuda'] == spec_toks['cpu']} (printed, not asserted)"
+    )
+    # the pyannote VAD (energy scores: no segmentation checkpoint) and the
+    # hybrid one (the energy fallback): the same segments on both devices
+    for method in ("pyannote", "hybrid"):
+        vad_pipes = {}
+        for dev in ("cpu", "cuda"):
+            vad_pipes[dev] = whisperx_tpu_torch.load_model(
+                "test-nano", device=dev, vad_method=method, compute_type="float32"
+            )
+            vad_pipes[dev].model = pipes[dev].model
+        out = {dev: p.transcribe(audio, language="en", temperatures=(0.0,)) for dev, p in vad_pipes.items()}
+        assert out["cpu"] == out["cuda"] and out["cuda"]["segments"], (method, out)
+        print(f"[small] test-nano f32 vad_method={method}: {len(out['cuda']['segments'])} identical segments on cuda and cpu")
+
     os.environ["WHISPERX_TPU_NO_PALLAS_QUANT"] = "1"
     try:
         decode(models["cuda"], mels.to("cuda")[:1], DecodingOptions(language="en", sample_len=4))
@@ -1554,6 +1613,333 @@ def phase_small_model() -> None:
     finally:
         del os.environ["WHISPERX_TPU_NO_PALLAS_QUANT"]
     print("[small] WHISPERX_TPU_FLASH=0 and WHISPERX_TPU_NO_PALLAS_QUANT raise ValueError on cuda")
+
+
+def spec_run(pipe, audio, label, **options):
+    """One greedy transcription of ``audio`` through ``pipe.transcribe``
+    (one temperature, the per-call ``options``): the decode stage's wall
+    time, the tracker's counters, each real row's tokens and the K1
+    launches. Speculative with a ``draft_model`` in ``options``."""
+    import torch
+
+    from whisperx_tpu_torch import asr
+    from whisperx_tpu_torch.decoding import speculative
+    from whisperx_tpu_torch.ops.flash_attention import flash_attention
+    from whisperx_tpu_torch.utils.metrics import GLOBAL_TRACKER
+
+    spec = options.get("draft_model") is not None
+    # each batch's results, kept around the finalize the pipeline calls (a
+    # function of ``asr``, or the decoder's method: the handle comes last)
+    owner, name = (
+        (speculative.SpeculativeDecoder, "decode_batch_finalize") if spec else (asr, "decode_finalize")
+    )
+    real, results = getattr(owner, name), []
+
+    def kept(*a):
+        out = real(*a)
+        results.extend(out)
+        return out
+
+    GLOBAL_TRACKER.reset()
+    flash_attention.launches = 0
+    setattr(owner, name, kept)
+    try:
+        t0 = time.perf_counter()
+        result = pipe.transcribe(audio, language="en", temperatures=(0.0,), **options)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        setattr(owner, name, real)
+    report, counters = GLOBAL_TRACKER.report(), dict(GLOBAL_TRACKER.counters)
+    rows = int(counters["batch_used"])  # the zero rows padding the last batch come last
+    tokens = [r.tokens for r in results][:rows]
+    decode_s = report["decode"]["total_s"]
+    emitted = sum(len(t) + 1 for t in tokens)  # + the EOT or the cut
+    out = {
+        "wall": wall, "decode_s": decode_s, "decodes": report["decode"]["calls"],
+        "steps": int(counters.get("decode_steps", 0)), "tokens": tokens, "rows": rows,
+        "emitted": emitted, "k1": flash_attention.launches, "result": result,
+        "ms_per_token": decode_s / (emitted / rows) * 1e3,
+        "proposed": int(counters.get("spec_proposed", 0)),
+        "accepted": int(counters.get("spec_accepted", 0)),
+        "passes": int(counters.get("spec_target_passes", 0)),
+    }
+    acc = out["accepted"] / out["proposed"] if out["proposed"] else float("nan")
+    print(
+        f"[spec] {label}: decode {decode_s:.3f} s over {out['decodes']} decode(s) of {rows} real rows "
+        f"({out['steps']} {'iterations' if spec else 'steps'}); tokens emitted {emitted} "
+        f"({emitted / rows:.1f} a row); ms per emitted token (decode wall / tokens a row) "
+        f"{out['ms_per_token']:.3f}; "
+        + (
+            f"target passes {out['passes']}, proposed {out['proposed']}, accepted "
+            f"{out['accepted']} (acceptance {acc:.4f}); "
+            if spec else ""
+        )
+        + f"transcribe wall {wall:.3f} s; K1 launches {out['k1']}"
+    )
+    return out
+
+
+def phase_speculative(pipe) -> None:
+    """Speculative decoding at full large-v3 width (bf16, random weights,
+    seed 0) on the main path's 120 s (seed 1), batch 8, one temperature:
+    ``draft_model="self:4"``, ``spec_gamma=4`` through ``transcribe``; the
+    same with a ``zero_tail_model(model, 4)`` target (its ``self:4`` draft
+    agrees exactly: acceptance ≈ 1, the mechanism's upper bound); and a
+    plain greedy decode of the same batch with ``kv_quant=False`` (the
+    cross-KV the speculative path keeps). K1 launches 32 × the decodes (the
+    ``self:N`` draft shares the target's encoder). The share of rows whose
+    bf16 tokens equal greedy's is printed, not asserted: random weights
+    flip bf16 ties."""
+    import torch
+
+    from whisperx_tpu_torch.asr import TranscriptionPipeline
+    from whisperx_tpu_torch.decoding.speculative import zero_tail_model
+
+    audio = synth_speech(MAIN_AUDIO_S, seed=1)
+    n_layer = pipe.model.dims.n_audio_layer
+    spec = spec_run(pipe, audio, "self:4, gamma 4", draft_model="self:4", spec_gamma=4)
+    greedy = spec_run(pipe, audio, "plain greedy, kv_quant=False", kv_quant=False)
+    zt_pipe = TranscriptionPipeline(
+        model=zero_tail_model(pipe.model, 4), vad_model=pipe.vad_model, batch_size=8
+    )
+    zero = spec_run(zt_pipe, audio, "zero-tail target, self:4, gamma 4", draft_model="self:4", spec_gamma=4)
+    del zt_pipe
+    torch.cuda.empty_cache()
+    for run in (spec, zero):
+        assert run["k1"] == n_layer * run["decodes"] > 0, (run["k1"], run["decodes"])
+        assert run["passes"] > 0 and run["proposed"] == 4 * run["passes"], run
+        for seg in run["result"]["segments"]:
+            assert 0.0 <= seg["start"] < seg["end"] <= MAIN_AUDIO_S + 1e-6, seg
+    assert greedy["k1"] == n_layer * greedy["decodes"] > 0
+    assert zero["accepted"] >= 0.9 * zero["proposed"], zero  # exact agreement, up to the budget
+    same = sum(a == b for a, b in zip(spec["tokens"], greedy["tokens"]))
+    print(
+        f"[spec] rows whose bf16 tokens equal greedy's (printed, not asserted): {same}/{spec['rows']}; "
+        f"ms per emitted token: self:4 {spec['ms_per_token']:.3f}, zero-tail {zero['ms_per_token']:.3f}, "
+        f"greedy {greedy['ms_per_token']:.3f} (speculative / greedy: {spec['ms_per_token'] / greedy['ms_per_token']:.3f}x "
+        f"and {zero['ms_per_token'] / greedy['ms_per_token']:.3f}x); ms per iteration "
+        f"{spec['decode_s'] / max(spec['steps'], 1) * 1e3:.3f} and {zero['decode_s'] / max(zero['steps'], 1) * 1e3:.3f} "
+        f"against {greedy['decode_s'] / max(greedy['steps'], 1) * 1e3:.3f} per greedy step"
+    )
+
+
+def spec_k4_launches(q_target, q_draft, n_dec, iterations, n_init, gamma=4, batch=8, frames=1500, d=1280):
+    """K4's launches per shape (M, K, N) in one speculative int8 run, as the
+    code implies them: per decode, the target's cross-KV (2 per quantized
+    block over batch × frames rows; the ``self:N`` draft reads the target's,
+    computing none), the target's prefill (batch × n_init rows) and the
+    draft's (batch × (n_init - 1)); per iteration, γ + 1 draft passes of
+    one token (γ drafts and the extra write of the last one's K/V) and one
+    verify pass of γ + 1 tokens. Each ``decoder_forward`` makes 8 launches
+    per quantized block: 6 at (d, d), one at (d, 4d), one at (4d, d)."""
+    import collections
+
+    counts = collections.Counter({(batch * frames, d, d): 2 * q_target * n_dec})
+    for rows, calls in (
+        (batch * n_init, q_target * n_dec),
+        (batch * (n_init - 1), q_draft * n_dec),
+        (batch, q_draft * (gamma + 1) * iterations),
+        (batch * (gamma + 1), q_target * iterations),
+    ):
+        counts[(rows, d, d)] += 6 * calls
+        counts[(rows, d, 4 * d)] += calls
+        counts[(rows, 4 * d, d)] += calls
+    return dict(counts)
+
+
+def phase_speculative_int8(model, k4_shapes: list) -> None:
+    """Phase 6's int8 large-v3 with a ``self:4`` draft (γ 4) on the CLI's
+    60 s (seed 2), one temperature, SPEC_INT8_SAMPLE_LEN tokens a row,
+    through ``transcribe``: every quantized
+    linear through K4, as often per shape as ``spec_k4_launches`` derives
+    from the code (draft steps at M = 8, a shape the beam CLI never runs;
+    verify passes at M = 40); Σ launches × ms over the shapes phase 3 timed
+    against Σ launches × bound."""
+    import collections
+
+    from whisperx_tpu_torch.asr import TranscriptionPipeline
+    from whisperx_tpu_torch.ops import quant_matmul as qm
+    from whisperx_tpu_torch.ops.quant_matmul import quant_matmul
+    from whisperx_tpu_torch.quant import QuantizedLinear
+    from whisperx_tpu_torch.vad import EnergyVAD
+
+    pipe = TranscriptionPipeline(model=model, vad_model=EnergyVAD(), batch_size=8)
+    q_blocks = sorted(
+        {int(n.split(".")[2]) for n, m in model.named_modules() if isinstance(m, QuantizedLinear)}
+    )
+    q_target, q_draft = len(q_blocks), sum(1 for b in q_blocks if b < 4)
+    real, by_shape = qm.int8_matmul, collections.Counter()
+
+    def counted(x, qw, scale, group_size):
+        by_shape[(x.shape[0], x.shape[1], qw.shape[1])] += 1
+        return real(x, qw, scale, group_size)
+
+    qm.int8_matmul = counted
+    quant_matmul.launches = 0
+    try:
+        run = spec_run(pipe, synth_speech(CLI_AUDIO_S, seed=2), "int8, self:4, gamma 4",
+                       draft_model="self:4", spec_gamma=4, sample_len=SPEC_INT8_SAMPLE_LEN)
+    finally:
+        qm.int8_matmul = real
+    n_init = 3  # <|startoftranscript|><|en|><|transcribe|>
+    want = spec_k4_launches(q_target, q_draft, run["decodes"], run["steps"], n_init)
+    assert dict(by_shape) == want, (dict(by_shape), want)
+    assert quant_matmul.launches == sum(want.values()) > 0
+    assert run["k1"] == model.dims.n_audio_layer * run["decodes"]
+    times = {(r["m"], r["k"], r["n"]): r for r in k4_shapes}
+    device_ms = floor_ms = 0.0
+    for shape, n in sorted(want.items()):
+        r = times.get(shape)
+        timed = f"x {r['ms']:.4f} ms = {n * r['ms']:.3f} ms (bound {n * r['bound_ms']:.3f} ms)" if r else "(shape not timed)"
+        if r:
+            device_ms += n * r["ms"]
+            floor_ms += n * r["bound_ms"]
+        print(f"[spec int8] K4 M={shape[0]} K={shape[1]} N={shape[2]}: {n} launches {timed}")
+    print(
+        f"[spec int8] K4 launches {quant_matmul.launches} (= the code's, per shape; {q_target} "
+        f"quantized target blocks, {q_draft} in the draft); over the timed shapes sum of launches x ms "
+        f"{device_ms:.3f} ms against sum of launches x bound {floor_ms:.3f} ms"
+    )
+
+
+def make_vad_checkpoints(root: str) -> dict:
+    """Silero at ``init_params``' published size (2 × LSTM 64 over 512
+    samples) and PyanNet at the default ``PyanNetConfig`` (SincNet 80/60/60,
+    4 × biLSTM 128, linears 128/128, 7 classes), random weights from seeded
+    ``torch.Generator``s with ``init_params``' distributions, written with
+    the port's ``save_checkpoint``; and the same Silero with its head
+    sharpened (×300, bias -1), whose probabilities swing across the
+    thresholds (the published head's stay within ~0.01 of 0.5), for
+    segments that mean something. Returns the paths by name."""
+    import dataclasses
+
+    import torch
+
+    from whisperx_tpu_torch.convert.checkpoint import save_checkpoint
+    from whisperx_tpu_torch.models import pyannote, silero_vad
+
+    paths = {name: os.path.join(root, name) for name in ("silero", "silero sharp", "pyannote")}
+    silero = silero_vad.init_params(torch.Generator("cuda").manual_seed(0))
+    save_checkpoint(paths["silero"], silero, {"family": "silero_vad", "name": "seeded"})
+    with torch.no_grad():
+        silero.head.w.mul_(300.0)
+        silero.head.b.sub_(1.0)
+    save_checkpoint(paths["silero sharp"], silero, {"family": "silero_vad", "name": "seeded, sharp"})
+    cfg = pyannote.PyanNetConfig()
+    net = pyannote.init_params(cfg, torch.Generator("cuda").manual_seed(0))
+    config = {k: list(v) if isinstance(v, tuple) else v for k, v in dataclasses.asdict(cfg).items()}
+    save_checkpoint(
+        paths["pyannote"], net,
+        {"family": "pyannote_segmentation", "name": "seeded", "config": config},
+    )
+    return paths
+
+
+def same_segments(label, got, want, probs, err, thresholds) -> None:
+    """CUDA's segments must be the CPU's. A difference is accepted only
+    where a score lies within the measured error of a threshold (a flip of
+    rounding, printed); any other raises."""
+    import numpy as np
+
+    spans = lambda segs: [(round(s.start, 6), round(s.end, 6)) for s in segs]  # noqa: E731
+    if spans(got) == spans(want):
+        return
+    margin = min(float(np.abs(np.asarray(probs) - t).min()) for t in thresholds)
+    print(f"[vad] {label}: segments differ; the nearest score is {margin:.3e} from a threshold (error {err:.3e})")
+    assert margin <= err, (label, spans(got), spans(want))
+
+
+def phase_vads() -> None:
+    """Both networks over the main path's 120 s (seed 1) on the card:
+    device time of the forward by CUDA events; CUDA against CPU (TF32
+    off in both): Silero's probabilities within 1e-5, PyanNet's log-scores
+    within 1e-4; the same segments; then ``BatchVADProcessor`` over
+    ``transcribe_many``'s three requests in one call, against each stream
+    alone."""
+    import numpy as np
+    import torch
+
+    from whisperx_tpu_torch.models.pyannote import forward
+    from whisperx_tpu_torch.models.silero_vad import frame_audio, speech_probs
+    from whisperx_tpu_torch.vad import BatchVADProcessor, load_vad_model
+
+    audio = synth_speech(MAIN_AUDIO_S, seed=1)
+    with tempfile.TemporaryDirectory() as root:
+        paths = make_vad_checkpoints(root)
+        vads = {
+            (name, dev): load_vad_model(
+                name.split()[0], model_path=path, device=dev, chunk_size=30.0
+            )
+            for name, path in paths.items()
+            for dev in ("cuda", "cpu")
+        }
+    # Silero: one stream of 3750 windows; the published head is held to
+    # 1e-5, the sharpened one (logits ×300) gives the segments
+    for name in ("silero", "silero sharp"):
+        models = {dev: vads[(name, dev)].model for dev in ("cuda", "cpu")}
+        windows = {dev: frame_audio(torch.from_numpy(audio).to(dev)) for dev in ("cuda", "cpu")}
+        ms = cuda_ms(lambda: speech_probs(models["cuda"], windows["cuda"]), iters=5, warmup=2)
+        probs = {dev: speech_probs(models[dev], windows[dev]).cpu().numpy() for dev in ("cuda", "cpu")}
+        err = float(np.abs(probs["cuda"] - probs["cpu"]).max())
+        segs = {dev: vads[(name, dev)]({"waveform": audio}) for dev in ("cuda", "cpu")}
+        same_segments(name, segs["cuda"], segs["cpu"], probs["cpu"], err, (0.5, 0.35))
+        print(
+            f"[vad] {name} (2 x LSTM 64, {windows['cuda'].shape[1]} windows of 512): forward {ms:.3f} ms "
+            f"of device time; CUDA against CPU max_abs_err {err:.3e}"
+            + (" (tol 1e-5)" if name == "silero" else " (logits x300: printed)")
+            + f"; {len(segs['cuda'])} segments on both; probs {probs['cuda'].min():.4f}..{probs['cuda'].max():.4f}"
+        )
+        assert err <= 1e-5 if name == "silero" else segs["cuda"], (name, err)
+    # PyanNet: every 10 s window at a 1 s step in one forward
+    vad = vads[("pyannote", "cuda")]
+    starts, chunks = vad.windows(audio)
+    x = {dev: torch.from_numpy(chunks).to(dev) for dev in ("cuda", "cpu")}
+    ms_p = cuda_ms(lambda: forward(vad._model, x["cuda"]), iters=3, warmup=1)
+    torch.cuda.reset_peak_memory_stats()
+    logs = {dev: forward(vads[("pyannote", dev)]._model, x[dev]).cpu().numpy() for dev in ("cuda", "cpu")}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    err_p = float(np.abs(logs["cuda"] - logs["cpu"]).max())
+    scores = {dev: vads[("pyannote", dev)]._frame_scores(audio) for dev in ("cuda", "cpu")}
+    segs_p = {dev: vads[("pyannote", dev)]({"waveform": audio}) for dev in ("cuda", "cpu")}
+    # speech = 1 - exp(log P(silence)): its error is at most the log-score's
+    same_segments("pyannote", segs_p["cuda"], segs_p["cpu"], scores["cpu"][0], err_p, (0.5, 0.363))
+    print(
+        f"[vad] pyannote (PyanNet default: SincNet 80/60/60, 4 x biLSTM 128, linears 128/128, 7 classes): "
+        f"{len(starts)} windows of 10 s in one forward, {logs['cuda'].shape[1]} frames each: "
+        f"{ms_p:.3f} ms of device time, peak {peak:.2f} GiB; CUDA against CPU log-scores max_abs_err "
+        f"{err_p:.3e} (tol 1e-4); {len(segs_p['cuda'])} segments on both; speech scores "
+        f"{scores['cuda'][0].min():.3f}..{scores['cuda'][0].max():.3f}"
+    )
+    assert err_p <= 1e-4 and segs_p["cuda"], err_p
+    # the batch processor: transcribe_many's three requests in one call
+    streams = [synth_speech(s, seed=3 + i) for i, s in enumerate(MANY_AUDIO_S)]
+    proc = BatchVADProcessor(vads[("silero sharp", "cuda")])
+    proc.process_batch(streams)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batched = proc.process_batch(streams)
+    wall = time.perf_counter() - t0
+    sharp = vads[("silero sharp", "cuda")]
+    alone = [sharp({"waveform": a}) for a in streams]
+    # the rows of the padded batch against each stream alone: cuDNN's
+    # recurrence may order its sums by batch size
+    t_max = max(-(-len(a) // 512) for a in streams)
+    padded = torch.stack([torch.nn.functional.pad(frame_audio(torch.from_numpy(a).cuda())[0],
+                                                  (0, 0, 0, t_max - -(-len(a) // 512))) for a in streams])
+    rows = speech_probs(sharp.model, padded).cpu().numpy()
+    for i, (b, a) in enumerate(zip(batched, alone)):
+        p = sharp.speech_probs(streams[i])
+        err_b = float(np.abs(rows[i, : len(p)] - p).max())
+        same_segments(f"batch row {i}", b, a, p, err_b, (0.5, 0.35))
+    print(
+        f"[vad] BatchVADProcessor over {len(streams)} streams ({'/'.join(f'{s:.0f}' for s in MANY_AUDIO_S)} s) "
+        f"in one call: {wall * 1e3:.3f} ms wall; segments per stream {[len(b) for b in batched]}, "
+        f"each stream's as when alone"
+    )
+    del vads, models, windows, x
+    torch.cuda.empty_cache()
+
 
 
 def main() -> int:
@@ -1605,14 +1991,17 @@ def main() -> int:
         with cross_decode_opt_in():
             phase_decode_profile(pipe.model, "profile cross-decode", k3=k3)
         phase_transcribe_many(pipe, k3)
+        phase_speculative(pipe)
         del pipe
         torch.cuda.empty_cache()
         phase_sequential()
         model = phase_cli(k4, k4_shapes)
         del os.environ["WHISPERX_TPU_ALIGN_DIR"]
     phase_decode_profile(model, "profile int8", beam_size=5)
+    phase_speculative_int8(model, k4_shapes)
     del model
     torch.cuda.empty_cache()
+    phase_vads()
     phase_small_model()
     for label, (entry, fn, attr) in unused.items():
         entry["launches"] = getattr(fn, attr)

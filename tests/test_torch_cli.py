@@ -2,9 +2,10 @@
 choices and defaults (but ``--device`` and ``--version``); byte-identical
 transcripts from the same f32 checkpoint, with the default beam search, the
 int8 path, the sequential modes (``--vad_method none``, ``--backend
-sequential``), word timing and forced alignment (with no aligner checkpoint,
-and with one); and every flag of a stage not ported yet raises
-``NotImplementedError`` naming its ROADMAP.md item, before anything loads."""
+sequential``), word timing, forced alignment (with no aligner checkpoint,
+and with one), speculative decoding and the other VADs; and every flag of a
+stage not ported yet raises ``NotImplementedError`` naming its ROADMAP.md
+item, before anything loads."""
 
 import dataclasses
 import json
@@ -190,11 +191,13 @@ def _same_outputs(jax_dir, torch_dir):
     return probs["torch json"]
 
 
-# flags of stages that are not ported raise; the ones this slice ported
-# (alignment, word timing, the silence threshold, and the seek loop with
-# word timing) write what the JAX CLI writes
-PORTED = {"align", "--word_timestamps True", "--hallucination_silence_threshold 2",
-          "--vad_method none --word_timestamps True"}
+# flags of stages that are not ported raise; the ported ones (alignment,
+# word timing, the silence threshold, the seek loop with word timing,
+# speculative decoding, the pyannote and hybrid VADs) write what the JAX CLI
+# writes
+WORDS = {"--word_timestamps True", "--vad_method none --word_timestamps True"}
+PORTED = WORDS | {"align", "--hallucination_silence_threshold 2", "--draft_model tiny",
+                  "--vad_method pyannote", "--vad_method hybrid"}
 
 
 @pytest.mark.parametrize(
@@ -219,11 +222,15 @@ PORTED = {"align", "--word_timestamps True", "--hallucination_silence_threshold 
 )
 def test_not_ported_flags_raise(workdir, extra, monkeypatch, capsys):
     """A flag of a stage that is not ported raises ``NotImplementedError``
-    naming its ROADMAP.md item before anything is written. The four cases
-    this slice ported run instead and write what the JAX CLI writes:
-    alignment with no aligner checkpoint (both skip it, with a message),
-    word timing in the batched pipeline and in the seek loop, and the
-    hallucination-silence threshold with it."""
+    naming its ROADMAP.md item before anything is written (``--diarize``,
+    ``--data_parallel on``). The ported cases run instead and write what the
+    JAX CLI writes: alignment with no aligner checkpoint (both skip it, with
+    a message), word timing in the batched pipeline and in the seek loop,
+    the hallucination-silence threshold with it, speculative decoding with
+    a random ``tiny`` draft (token-identical to greedy whatever the draft's
+    weights; the CLI's beam 5 is dropped with a warning in both), and the
+    pyannote and hybrid VADs without checkpoints (energy scores through
+    Binarize; the energy fallback)."""
     case = " ".join(extra) or "align"
     argv = _argv(workdir, "refused", "float32")
     if not extra:
@@ -242,19 +249,24 @@ def test_not_ported_flags_raise(workdir, extra, monkeypatch, capsys):
     monkeypatch.setenv("HOME", str(workdir / "home"))
     monkeypatch.delenv("WHISPERX_TPU_ALIGN_DIR", raising=False)
     monkeypatch.delenv("WHISPERX_TPU_ALLOW_RANDOM_ALIGN", raising=False)
+    monkeypatch.delenv("WHISPERX_TPU_SILERO_CKPT", raising=False)
     out = case.replace(" ", "_").strip("-")
     dirs = {}
     for pkg in ("jax", "torch"):
         dirs[pkg] = workdir / f"{pkg}_{out}"
         argv[argv.index("-o") + 1] = str(dirs[pkg])
-        _run(pkg, argv + list(extra))
+        if case == "--draft_model tiny":
+            with pytest.warns(UserWarning, match="greedy-only; ignoring beam_size=5"):
+                _run(pkg, argv + list(extra))
+        else:
+            _run(pkg, argv + list(extra))
         if case == "align":
             assert ">>Skipping alignment" in capsys.readouterr().out, pkg
     result = _same_outputs(dirs["jax"], dirs["torch"])
     words = [w for s in result["segments"] for w in s.get("words", [])]
     # random weights: the silence threshold evicts every segment as an
     # anomaly, in both packages
-    assert bool(words) == (case in PORTED - {"align", "--hallucination_silence_threshold 2"})
+    assert bool(words) == (case in WORDS)
     assert "word_segments" not in result
     for w in words:
         assert 0.0 <= w["start"] <= w["end"] <= 10.0

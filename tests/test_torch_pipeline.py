@@ -4,7 +4,8 @@ checkpoint through ``whisperx_tpu.load_model`` and
 ``word_timestamps``); the reference's compatibility keywords are accepted;
 the ``WHISPERX_TPU_*`` switches are honoured or refused as the port's rule
 says; the port runs without JAX or the JAX package; CUDA is never silently
-replaced by the CPU; options this slice does not run raise."""
+replaced by the CPU; the options that once raised (stages not ported then)
+run and give JAX's results."""
 
 import dataclasses
 import os
@@ -86,10 +87,12 @@ def test_fallback_temperatures_rerun_failing_chunks(nano_ckpt, speech35):
 def test_port_runs_without_jax(nano_ckpt):
     """A fresh interpreter imports the port (its CLI, orchestrator, backends,
     seek loop, kernels' modules, quantization, alignment, word timing and
-    the native audio library too), transcribes with word timestamps, with a
-    VAD and without, and aligns (random weights, allowed by the suite's
-    ``WHISPERX_TPU_ALLOW_RANDOM_ALIGN``); neither jax nor any module of the
-    JAX package is loaded."""
+    the native audio library, speculative decoding and every VAD too),
+    transcribes with word timestamps, with a VAD and without, with a
+    ``self:1`` draft behind the pyannote VAD, runs the Silero network
+    through the batch processor, and aligns (random weights, allowed by the
+    suite's ``WHISPERX_TPU_ALLOW_RANDOM_ALIGN``); neither jax nor any module
+    of the JAX package is loaded."""
     code = textwrap.dedent(
         f"""
         import sys
@@ -105,6 +108,11 @@ def test_port_runs_without_jax(nano_ckpt):
         import whisperx_tpu_torch.quant
         import whisperx_tpu_torch.timing
         import whisperx_tpu_torch.transcribe
+        import whisperx_tpu_torch.decoding.speculative
+        import whisperx_tpu_torch.models.pyannote
+        import whisperx_tpu_torch.models.silero_vad
+        import whisperx_tpu_torch.vad.batch
+        import whisperx_tpu_torch.vad.pyannote_vad
         t = np.arange(16000 * 12) / 16000
         audio = (0.3 * np.sin(2 * np.pi * 220 * t) * (np.sin(2 * np.pi * 0.3 * t) > 0)).astype(np.float32)
         pipe = whisperx_tpu_torch.load_model(
@@ -119,6 +127,14 @@ def test_port_runs_without_jax(nano_ckpt):
         aligned = whisperx_tpu_torch.align(out["segments"], aligner, meta, audio, "cpu")
         assert aligned["word_segments"], aligned
         assert len(whisperx_tpu_torch.native.resample(audio, 16000, 8000)) == len(audio) // 2
+        spec = whisperx_tpu_torch.load_model(
+            {nano_ckpt!r}, device="cpu", compute_type="float32", vad_method="pyannote",
+            asr_options={{"draft_model": "self:1", "spec_gamma": 2}},
+        )
+        out = spec.transcribe(audio, language="en", temperatures=(0.0,), sample_len=16)
+        assert out["segments"] and spec._spec_decoder is not None, out
+        sil = whisperx_tpu_torch.vad.SileroVAD(device="cpu")
+        assert whisperx_tpu_torch.vad.BatchVADProcessor(sil).process_batch([audio]) is not None
         seq = whisperx_tpu_torch.load_model(
             {nano_ckpt!r}, device="cpu", compute_type="float32", vad_method="none"
         )
@@ -190,8 +206,9 @@ def _same_result(got, want):
 @pytest.mark.parametrize(
     "kwargs",
     [
-        # the sequential modes run (tests/test_torch_sequential.py); what
-        # they cannot run yet still raises; word timing runs in every mode
+        # every option of load_model is ported: each case runs and gives the
+        # JAX package's result (word timing in every mode, speculative
+        # decoding, the pyannote and hybrid VADs)
         dict(backend="standard", asr_options={"word_timestamps": True}),
         dict(vad_method="none", asr_options={"draft_model": "self:1"}),
         dict(backend="sequential", vad_method="pyannote"),
@@ -204,24 +221,26 @@ def _same_result(got, want):
     ],
 )
 def test_unported_load_options_raise(kwargs, nano_ckpt, speech35):
-    """Options of stages not ported raise at ``load_model``. Word timing is
-    ported: in the batched pipeline, the seek loop over each VAD chunk
-    (``backend="standard"``) and over the whole file (no VAD), the words are
-    those of the JAX package."""
+    """The options of ``load_model`` that once raised (stages not ported
+    then) now run, each giving the JAX package's result: word timing in the
+    batched pipeline, the seek loop over each VAD chunk
+    (``backend="standard"``) and over the whole file (no VAD); a
+    ``draft_model`` (``self:1`` or a random ``tiny``: token-identical to
+    greedy whatever its weights; the seek loop without a VAD ignores it, as
+    in JAX); the pyannote VAD (energy scores without a checkpoint) and the
+    hybrid one (the energy fallback), batched and sequential."""
     import whisperx_tpu
     import whisperx_tpu_torch
 
     kw = {"vad_method": "energy", **kwargs}
-    if not kwargs.get("asr_options", {}).get("word_timestamps"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            whisperx_tpu_torch.load_model("test-nano", device="cpu", **kw)
-        return
     kw.update(compute_type="float32", language="en")
-    kw["asr_options"] = {**kw["asr_options"], "temperatures": (0.0,), "sample_len": 24}
+    kw["asr_options"] = {**kw.get("asr_options", {}), "temperatures": (0.0,), "sample_len": 24}
     audio = speech35[: 16000 * 20]
     want = whisperx_tpu.load_model(nano_ckpt, device="cpu", **kw).transcribe(audio)
     got = whisperx_tpu_torch.load_model(nano_ckpt, device="cpu", **kw).transcribe(audio)
-    assert any(s.get("words") for s in got["segments"])
+    assert got["segments"]
+    if kw["asr_options"].get("word_timestamps"):
+        assert any(s.get("words") for s in got["segments"])
     _same_result(got, want)
 
 
@@ -229,22 +248,21 @@ def test_unported_load_options_raise(kwargs, nano_ckpt, speech35):
     "option", [{"draft_model": "tiny"}, {"word_timestamps": True}, {"draft_model": "self:1"}]
 )
 def test_unported_call_options_raise(option, nano_ckpt, speech35):
-    """A per-call option of a stage not ported raises; a misspelt one is a
-    ``TypeError``. ``word_timestamps=True`` for one call runs and gives the
-    JAX package's words."""
+    """A misspelt per-call option is a ``TypeError``. The per-call options
+    that once raised now run for that call and give the JAX package's
+    result: ``word_timestamps=True`` its words, a ``draft_model`` its
+    segments (a first call: JAX builds its speculative decoder then too)."""
     import whisperx_tpu_torch
 
     pipe = whisperx_tpu_torch.load_model("test-nano", device="cpu", vad_method="energy")
     with pytest.raises(TypeError, match="Unknown transcribe option"):
         pipe.transcribe(synth_speech(2.0), language="en", beamsize=2)
-    if "draft_model" in option:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            pipe.transcribe(synth_speech(2.0), language="en", **option)
-        return
     jpipe, tpipe = _pipelines(nano_ckpt)
     kw = dict(language="en", temperatures=(0.0,), sample_len=24, **option)
     got = tpipe.transcribe(speech35, **kw)
-    assert any(s["words"] for s in got["segments"])
+    assert got["segments"]
+    if "word_timestamps" in option:
+        assert any(s["words"] for s in got["segments"])
     _same_result(got, jpipe.transcribe(speech35, **kw))
 
 
@@ -406,11 +424,15 @@ def test_xla_route_switches_raise_on_cuda_and_change_nothing_on_cpu(monkeypatch,
 
 
 def test_silero_without_checkpoint_falls_back_to_energy(monkeypatch):
+    """Without a converted Silero checkpoint, the energy VAD with a warning;
+    a ``model_path`` that does not exist raises JAX's error (the network is
+    ported: ``tests/test_torch_vad.py``). The VAD takes the pipeline's
+    device, here the CPU."""
     from whisperx_tpu_torch.vad import EnergyVAD, load_vad_model
 
     monkeypatch.delenv("WHISPERX_TPU_SILERO_CKPT", raising=False)
     with pytest.warns(UserWarning, match="energy"):
-        vad = load_vad_model("silero")
+        vad = load_vad_model("silero", device="cpu")
     assert isinstance(vad, EnergyVAD)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        load_vad_model("silero", model_path="/nonexistent/silero")
+    with pytest.raises(FileNotFoundError):
+        load_vad_model("silero", model_path="/nonexistent/silero", device="cpu")

@@ -72,7 +72,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--beam_size", type=optional_int, default=5, help="beam width for search at temperature 0")
     parser.add_argument("--patience", type=float, default=1.0, help="beam-search patience factor (keep exploring after the first finished beams)")
     parser.add_argument("--length_penalty", type=float, default=1.0, help="alpha for length-normalized beam scoring")
-    parser.add_argument("--draft_model", type=str, default=None, help="enables speculative decoding: name or checkpoint path of a draft Whisper model, or 'self:N' (not ported yet)")
+    parser.add_argument("--draft_model", type=str, default=None, help="enables speculative decoding: name or checkpoint path of a draft Whisper model, or 'self:N' to draft from the target's own first N decoder layers; greedy batched decode only, token-identical to non-speculative greedy decoding")
     parser.add_argument("--spec_gamma", type=int, default=4, help="tokens drafted per speculative verify pass (only with --draft_model)")
 
     parser.add_argument("--suppress_tokens", type=str, default="-1", help="token ids (comma-separated) to forbid during decoding; '-1' = the standard special-character blocklist")

@@ -17,10 +17,9 @@ Counterpart of ``whisperx_tpu/asr.py``. The batched mode:
 batches. Without a VAD, or with ``decode_mode="sequential"`` (the
 ``backend="sequential"`` of ``load_model``), the sequential seek loop of
 ``decoding/transcribe.py`` decodes the whole file, or each VAD chunk, one
-30 s window at a time.
-
-Options this slice does not run raise ``NotImplementedError`` naming the
-ROADMAP.md item that brings them; none is silently ignored.
+30 s window at a time. With a ``draft_model``, the greedy batches (temperature
+0, no beam) go through the speculative decoder
+(``decoding/speculative.py``); the fallback temperatures decode normally.
 """
 
 from __future__ import annotations
@@ -92,16 +91,20 @@ DEFAULT_VAD_OPTIONS = {
     "vad_offset": 0.363,
 }
 
-# option → (value that is supported, what brings the others)
-_LATER = {
-    "draft_model": (None, "speculative decoding: ROADMAP.md, Queue 1, item 8"),
-}
 
-
-def _check_supported(options: dict) -> None:
-    for key, (ok, later) in _LATER.items():
-        if options.get(key, ok) != ok:
-            raise NotImplementedError(f"{key}={options[key]!r} is not ported yet ({later})")
+def _greedy_only(options: dict) -> dict:
+    """Speculative decoding is greedy-only (token-identical to greedy):
+    with a ``draft_model``, a ``beam_size`` would silently win the decode's
+    gate and the draft would never load, so it is dropped, with a warning
+    (the JAX package's constructor does this; the port does it for a
+    per-call draft too)."""
+    if options.get("draft_model") is None or options.get("beam_size") is None:
+        return options
+    warnings.warn(
+        "draft_model requests speculative decoding, which is greedy-only; "
+        f"ignoring beam_size={options['beam_size']}."
+    )
+    return {**options, "beam_size": None}
 
 
 def warmup_audio(duration_s: float = 65.0) -> np.ndarray:
@@ -154,8 +157,40 @@ class TranscriptionPipeline:
     seed: int = 0  # seeds the sampling generator of each decode at T > 0
 
     def __post_init__(self):
-        self.asr_options = {**DEFAULT_ASR_OPTIONS, **(self.asr_options or {})}
-        _check_supported(self.asr_options)
+        self.asr_options = _greedy_only(
+            {**DEFAULT_ASR_OPTIONS, **(self.asr_options or {})}
+        )
+        self._spec_decoder = None
+
+    def _spec(self, o: dict):
+        """The SpeculativeDecoder of the options ``o`` (``draft_model``: a
+        model name, a checkpoint path, or ``"self:N"``, the target's own
+        first N decoder layers; ``spec_gamma``), or None without a draft.
+        Built at first use and cached; rebuilt when a call's draft or gamma
+        differ from the cached decoder's. JAX keeps the first one it built,
+        so a per-call draft there reuses a stale decoder (ADVICE r5,
+        asr.py:268); the port builds the one that was asked for."""
+        from whisperx_tpu_torch.decoding.speculative import (
+            SpeculativeDecoder,
+            truncated_self_draft,
+        )
+        from whisperx_tpu_torch.models.whisper import load_model as load_whisper
+
+        draft = o.get("draft_model")
+        if draft is None:
+            return None
+        gamma = int(o.get("spec_gamma") or 4)
+        key = (draft if isinstance(draft, str) else id(draft), gamma)
+        if self._spec_decoder is None or self._spec_decoder[0] != key:
+            if isinstance(draft, str) and draft.startswith("self:"):
+                # weights shared, no second checkpoint: the mechanism is
+                # exact; the speedup depends on how often the early exit
+                # agrees with the full model
+                draft = truncated_self_draft(self.model, int(draft.split(":", 1)[1]))
+            elif isinstance(draft, str):
+                draft = load_whisper(draft, dtype=self.model.dtype, device=self.device)
+            self._spec_decoder = (key, SpeculativeDecoder(self.model, draft, gamma=gamma))
+        return self._spec_decoder[1]
 
     @property
     def device(self) -> torch.device:
@@ -210,8 +245,7 @@ class TranscriptionPipeline:
                     f"Unknown transcribe option(s): {sorted(unknown)}. "
                     "Valid keys are those of DEFAULT_ASR_OPTIONS."
                 )
-            options = {**self.asr_options, **kwargs}
-            _check_supported(options)
+            options = _greedy_only({**self.asr_options, **kwargs})
         else:
             options = self.asr_options
         if isinstance(audio, str):
@@ -579,6 +613,13 @@ class TranscriptionPipeline:
                 bs_eff = max(1, min(batch_size, max_rows // tile))
             else:
                 bs_eff = batch_size
+            # speculative decoding serves the greedy (temperature-0,
+            # un-tiled) batches; fallback temperatures decode normally
+            spec = (
+                self._spec(o)
+                if temperature == 0 and opts.beam_size is None and tile == 1
+                else None
+            )
             still_pending = []
             for base in range(0, len(pending), bs_eff):
                 idxs = pending[base : base + bs_eff]
@@ -596,10 +637,14 @@ class TranscriptionPipeline:
                     )
                 audio_s = sum(chunks[i]["end"] - chunks[i]["start"] for i in idxs)
                 with _tracker.track("decode", audio_s):
-                    handle = decode_dispatch(
-                        self.model, rows, opts, generator=generator
-                    )
-                    batch_results = decode_finalize(handle)
+                    if spec is not None:
+                        handle = spec.decode_batch_dispatch(rows, opts, n_real=len(idxs))
+                        batch_results = spec.decode_batch_finalize(handle)
+                    else:
+                        handle = decode_dispatch(
+                            self.model, rows, opts, generator=generator
+                        )
+                        batch_results = decode_finalize(handle)
                 _tracker.add("decode_steps", handle["steps"])
                 for j, idx in enumerate(idxs):
                     r = batch_results[j]
@@ -777,8 +822,10 @@ def load_model(
     float32, or int8 / int4: bf16 weights with the decoder's linears
     weight-only quantized (``quant.quantize_model``; int8 runs kernel K4 on
     CUDA). ``vad_method`` None or "none": no VAD, the seek loop over the
-    whole file. ``backend`` "sequential" (or "standard"): the seek loop over
-    each VAD chunk; anything else the batched decode.
+    whole file; the VAD runs on ``device`` too. ``backend`` "sequential" (or
+    "standard"): the seek loop over each VAD chunk; anything else the
+    batched decode. ``asr_options={"draft_model": "self:4", "spec_gamma":
+    4}``: speculative decoding of the greedy batches.
 
     ``device_index``, ``download_root``, ``local_files_only``, ``threads``
     and any other keyword are the reference's and are accepted and ignored,
@@ -802,6 +849,7 @@ def load_model(
             vad_onset=opts["vad_onset"],
             vad_offset=opts["vad_offset"],
             chunk_size=opts["chunk_size"],
+            device=device,
         )
     model = load_whisper(
         whisper_arch,

@@ -1,7 +1,7 @@
 """Reader and writer of the checkpoint directories the JAX package writes,
 and the weight bridges from its flat parameter names onto the port's
 modules (``params_from_numpy`` for Whisper, ``wav2vec2_from_numpy`` for the
-aligner).
+aligner, ``silero_from_numpy`` and ``pyannote_from_numpy`` for the VADs).
 
 A checkpoint directory holds (``whisperx_tpu/convert/checkpoint.py``):
   - ``weights.npz``   : flat ``{"a/b/0/w": array}`` mapping of the param tree
@@ -46,25 +46,33 @@ def _quantized_linear(node: dict, device=None):
     )
 
 
+def _array(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
 def flatten_tree(model) -> Dict[str, np.ndarray]:
     """A port model's weights in the layout of the JAX package's
     ``flatten_tree``: ``a/b/0/w`` names, quantized linears under
     ``<path>/__quantized_linear__/{qw,scale,b,meta}``, bf16 widened to f32
-    (numpy has no bf16)."""
+    (numpy has no bf16). The VAD networks, whose modules hold torch's LSTM
+    and conv layouts, go through ``silero_to_numpy``/``pyannote_to_numpy``."""
+    from whisperx_tpu_torch.models.pyannote.model import PyanNet
+    from whisperx_tpu_torch.models.silero_vad.model import SileroVADNet
     from whisperx_tpu_torch.quant.core import QuantizedLinear
 
-    def array(t: torch.Tensor) -> np.ndarray:
-        t = t.detach().cpu()
-        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
-
-    flat = {name.replace(".", "/"): array(p) for name, p in model.named_parameters()}
+    if isinstance(model, SileroVADNet):
+        return silero_to_numpy(model)
+    if isinstance(model, PyanNet):
+        return pyannote_to_numpy(model)
+    flat = {name.replace(".", "/"): _array(p) for name, p in model.named_parameters()}
     for name, mod in model.named_modules():
         if isinstance(mod, QuantizedLinear):
             key = f"{name.replace('.', '/')}/{_QUANT_MARKER}"
-            flat[f"{key}/qw"] = array(mod.qw)
-            flat[f"{key}/scale"] = array(mod.scale)
+            flat[f"{key}/qw"] = _array(mod.qw)
+            flat[f"{key}/scale"] = _array(mod.scale)
             if mod.b is not None:
-                flat[f"{key}/b"] = array(mod.b)
+                flat[f"{key}/b"] = _array(mod.b)
             flat[f"{key}/meta"] = np.asarray([mod.bits, mod.group_size], np.int64)
     return flat
 
@@ -191,6 +199,146 @@ def wav2vec2_from_numpy(
     )
     model = Wav2Vec2(config, conv_bias=conv_bias, dtype=dtype, device=device)
     _copy_params(model, flat, dtype, config)
+    return model.eval()
+
+
+def _lstm_to_numpy(lstm: torch.nn.LSTM, layer: int, suffix: str = "") -> Dict[str, np.ndarray]:
+    """One direction of one layer in the JAX layout: ``wx [in, 4H]``,
+    ``wh [H, 4H]`` and one bias (torch's two summed)."""
+    def get(name):
+        return _array(getattr(lstm, f"{name}_l{layer}{suffix}"))
+
+    return {
+        "wx": np.ascontiguousarray(get("weight_ih").T),
+        "wh": np.ascontiguousarray(get("weight_hh").T),
+        "b": get("bias_ih") + get("bias_hh"),
+    }
+
+
+@torch.no_grad()
+def _lstm_from_numpy(lstm: torch.nn.LSTM, layer: int, node: dict, suffix: str = "") -> None:
+    """``weight_ih = wxᵀ``, ``weight_hh = whᵀ``, ``bias_ih = b``,
+    ``bias_hh = 0`` (JAX adds one bias; torch two)."""
+    for name, value in (
+        ("weight_ih", np.asarray(node["wx"]).T),
+        ("weight_hh", np.asarray(node["wh"]).T),
+        ("bias_ih", np.asarray(node["b"])),
+        ("bias_hh", np.zeros_like(np.asarray(node["b"]))),
+    ):
+        p = getattr(lstm, f"{name}_l{layer}{suffix}")
+        if tuple(value.shape) != tuple(p.shape):
+            raise ValueError(f"lstm {name} l{layer}{suffix}: checkpoint {value.shape}, model {tuple(p.shape)}")
+        p.copy_(torch.tensor(value).to(p.dtype))
+
+
+def _tree(flat: Dict[str, np.ndarray]) -> dict:
+    """The flat names as nested dicts and lists, without the markers of
+    empty containers."""
+    return unflatten_tree(
+        {k: v for k, v in flat.items() if not k.endswith((_EMPTY_DICT, _EMPTY_LIST))}
+    )
+
+
+def silero_to_numpy(model) -> Dict[str, np.ndarray]:
+    """A ``SileroVADNet`` as the JAX package's flat Silero tree: ``lstm/<i>/
+    {wx,wh,b}``, ``head/{w,b}``, and ``config/{hidden_size,num_layers}`` as
+    0-d arrays."""
+    lstm = model.lstm
+    flat = {}
+    for i in range(lstm.num_layers):
+        flat.update((f"lstm/{i}/{k}", v) for k, v in _lstm_to_numpy(lstm, i).items())
+    flat["head/w"] = _array(model.head.w)
+    flat["head/b"] = _array(model.head.b)
+    flat["config/hidden_size"] = np.asarray(lstm.hidden_size)
+    flat["config/num_layers"] = np.asarray(lstm.num_layers)
+    return flat
+
+
+@torch.no_grad()
+def silero_from_numpy(
+    flat: Dict[str, np.ndarray],
+    dtype: torch.dtype = torch.float32,
+    device: Union[str, torch.device] = "cuda",
+):
+    """Build a ``SileroVADNet`` from the JAX package's flat Silero tree (its
+    ``init_params`` or the converter's): the sizes come from the 0-d
+    ``config/hidden_size`` and ``config/num_layers`` and from ``lstm/0/wx``."""
+    from whisperx_tpu_torch.models.silero_vad.model import SileroVADNet
+
+    tree = _tree(flat)
+    hidden, layers = int(tree["config"]["hidden_size"]), int(tree["config"]["num_layers"])
+    if len(tree["lstm"]) != layers:
+        raise ValueError(f"config/num_layers {layers}, checkpoint has {len(tree['lstm'])} layers")
+    input_size = np.asarray(tree["lstm"][0]["wx"]).shape[0]
+    model = SileroVADNet(input_size, hidden, layers, dtype=dtype, device=device)
+    for i, node in enumerate(tree["lstm"]):
+        _lstm_from_numpy(model.lstm, i, node)
+    _copy_params(model.head, {k: np.asarray(v) for k, v in tree["head"].items()}, dtype, "head")
+    return model.eval()
+
+
+def pyannote_to_numpy(model) -> Dict[str, np.ndarray]:
+    """A ``PyanNet`` as the JAX package's flat tree: ``wav_norm/{g,b}``,
+    ``sincnet/<i>/w`` [K, I, O] and ``sincnet/<i>/norm/{g,b}``, ``lstm/<i>/
+    {fwd,bwd}/{wx,wh,b}``, ``linear/<i>/{w,b}``, ``classifier/{w,b}``."""
+    flat = {"wav_norm/g": _array(model.wav_norm.g), "wav_norm/b": _array(model.wav_norm.b)}
+    for i, conv in enumerate(model.sincnet):
+        flat[f"sincnet/{i}/w"] = np.ascontiguousarray(_array(conv.weight).transpose(2, 1, 0))
+        flat[f"sincnet/{i}/norm/g"] = _array(conv.norm.g)
+        flat[f"sincnet/{i}/norm/b"] = _array(conv.norm.b)
+    for i in range(model.cfg.lstm_layers):
+        for direction, suffix in (("fwd", ""), ("bwd", "_reverse")):
+            flat.update(
+                (f"lstm/{i}/{direction}/{k}", v)
+                for k, v in _lstm_to_numpy(model.lstm, i, suffix).items()
+            )
+    if not model.cfg.lstm_layers:
+        flat[f"lstm{_EMPTY_LIST}"] = np.zeros(0, np.int8)
+    for i, lin in enumerate(model.linear):
+        flat[f"linear/{i}/w"], flat[f"linear/{i}/b"] = _array(lin.w), _array(lin.b)
+    if not len(model.linear):
+        flat[f"linear{_EMPTY_LIST}"] = np.zeros(0, np.int8)
+    flat["classifier/w"] = _array(model.classifier.w)
+    flat["classifier/b"] = _array(model.classifier.b)
+    return flat
+
+
+@torch.no_grad()
+def pyannote_from_numpy(
+    flat: Dict[str, np.ndarray],
+    cfg,
+    dtype: torch.dtype = torch.float32,
+    device: Union[str, torch.device] = "cuda",
+):
+    """Build a ``PyanNet`` of config ``cfg`` from the JAX package's flat
+    PyanNet tree: convs HIO ([K, I, O]) → torch's [O, I, K]; each LSTM
+    direction through ``_lstm_from_numpy`` (``bwd`` → the reversed one). A
+    tree without ``wav_norm`` (the JAX forward then skips the waveform's
+    norm) is refused: the port's forward always runs it."""
+    from whisperx_tpu_torch.models.pyannote.model import PyanNet
+
+    tree = _tree(flat)
+    if "wav_norm" not in tree:
+        raise KeyError("checkpoint has no wav_norm (every converted PyanNet has one)")
+    model = PyanNet(cfg, dtype=dtype, device=device)
+    state = {"wav_norm/g": tree["wav_norm"]["g"], "wav_norm/b": tree["wav_norm"]["b"]}
+    if len(tree["sincnet"]) != len(model.sincnet) or len(tree.get("lstm", [])) != cfg.lstm_layers:
+        raise ValueError("checkpoint layer counts do not match the config")
+    for i, node in enumerate(tree["sincnet"]):
+        state[f"sincnet/{i}/weight"] = np.asarray(node["w"]).transpose(2, 1, 0)
+        state[f"sincnet/{i}/norm/g"] = node["norm"]["g"]
+        state[f"sincnet/{i}/norm/b"] = node["norm"]["b"]
+    for i, lin in enumerate(tree.get("linear", [])):
+        state[f"linear/{i}/w"], state[f"linear/{i}/b"] = lin["w"], lin["b"]
+    state["classifier/w"] = tree["classifier"]["w"]
+    state["classifier/b"] = tree["classifier"]["b"]
+    for i, layer in enumerate(tree.get("lstm", [])):
+        _lstm_from_numpy(model.lstm, i, layer["fwd"])
+        _lstm_from_numpy(model.lstm, i, layer["bwd"], "_reverse")
+    non_lstm = torch.nn.Module()
+    for name in ("wav_norm", "sincnet", "linear", "classifier"):
+        setattr(non_lstm, name, getattr(model, name))
+    _copy_params(non_lstm, {k: np.asarray(v) for k, v in state.items()}, dtype, cfg)
     return model.eval()
 
 

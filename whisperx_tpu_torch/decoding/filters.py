@@ -3,13 +3,16 @@
 Counterpart of ``whisperx_tpu/decoding/filters.py``: SuppressBlank /
 SuppressTokens / ApplyTimestampRules as ``[B, V] -> [B, V]`` maps over f32
 logits, driven by a small ``FilterState``. The state's ``step`` is a Python
-int: the decode loop runs on the host, so branching on it costs nothing.
+int where every row has sampled as many tokens (the decode loop runs on the
+host, so branching on it costs nothing), or a [B] tensor where rows advance
+at their own pace (the speculative decode, whose rows accept their own
+number of tokens).
 """
 
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -23,7 +26,7 @@ class FilterState(NamedTuple):
     penult_token: torch.Tensor  # [B] int64
     last_timestamp: torch.Tensor  # [B] int64 (token id; 0 if none)
     has_timestamp: torch.Tensor  # [B] bool
-    step: int  # tokens sampled so far
+    step: Union[int, torch.Tensor]  # tokens sampled so far: int, or [B] int64
 
 
 def init_filter_state(initial_tokens: torch.Tensor) -> FilterState:
@@ -72,9 +75,11 @@ def suppress_blank(
     eot: int,
 ) -> torch.Tensor:
     """At the first sampled position, forbid blank/EOT openings."""
-    if state.step != 0:
+    if not torch.is_tensor(state.step) and state.step != 0:
         return logits
     mask = _id_mask(logits.shape[-1], tuple(blank_tokens) + (eot,), logits.device)
+    if torch.is_tensor(state.step):
+        return logits.masked_fill((state.step == 0)[:, None] & mask[None], NEG_INF)
     return logits.masked_fill(mask[None], NEG_INF)
 
 
@@ -114,16 +119,17 @@ def apply_timestamp_rules(
     # "penultimate was a timestamp" counts sampled tokens only: with fewer
     # than 2 sampled it is vacuously true (Whisper's `len(seq) < 2 or ...`),
     # so the token after the forced initial timestamp must be text
-    penult_was_ts = (state.penult_token >= timestamp_begin)[:, None] | (
-        state.step < 2
-    )
+    per_row = torch.is_tensor(state.step)
+    step = state.step[:, None] if per_row else state.step  # [B, 1] or int
+    penult_was_ts = (state.penult_token >= timestamp_begin)[:, None] | (step < 2)
     # pair grammar, from the first sampled token on: after an unpaired
     # timestamp mask text (ids < eot); after a pair mask timestamps
-    if state.step > 0:
-        grammar_mask = (last_was_ts & ~penult_was_ts & (vocab_ids < eot)) | (
-            last_was_ts & penult_was_ts & is_ts_col
-        )
-    else:
+    grammar_mask = (last_was_ts & ~penult_was_ts & (vocab_ids < eot)) | (
+        last_was_ts & penult_was_ts & is_ts_col
+    )
+    if per_row:
+        grammar_mask = grammar_mask & (step > 0)
+    elif step == 0:
         grammar_mask = torch.zeros_like(is_ts_col)
 
     # monotonicity: never below the latest timestamp (exclusive only while a
@@ -137,12 +143,14 @@ def apply_timestamp_rules(
     mono_mask = is_ts_col & (vocab_ids < lower[:, None])
     logits = logits.masked_fill(grammar_mask | mono_mask, NEG_INF)
 
-    if state.step == 0:
+    if per_row or step == 0:
         # the first sampled token must be a timestamp, bounded by max_initial
         init_mask = ~is_ts_col
         if max_initial_timestamp_index is not None:
             last_allowed = timestamp_begin + max_initial_timestamp_index
             init_mask = init_mask | (vocab_ids > last_allowed)
+        if per_row:
+            init_mask = init_mask & (step == 0)
         logits = logits.masked_fill(init_mask, NEG_INF)
 
     # sample a timestamp whenever its total probability outweighs any single

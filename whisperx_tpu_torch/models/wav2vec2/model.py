@@ -27,7 +27,6 @@ through ``convert.checkpoint.wav2vec2_from_numpy``.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import math
 from typing import Tuple, Union
@@ -36,7 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from whisperx_tpu_torch.utils.precision import reference_matmul
+from whisperx_tpu_torch.utils.precision import no_tf32_cudnn, reference_matmul
 
 
 @dataclasses.dataclass(frozen=True)
@@ -242,17 +241,6 @@ def init_params(
 # ---------------------------------------------------------------------------
 
 
-@contextlib.contextmanager
-def _no_tf32_convolutions():
-    """cuDNN convolutions in full f32 inside, the caller's setting after."""
-    saved = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = saved
-
-
 def _layer_norm(p: Norm, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     xf = x.float()
     mu = xf.mean(-1, keepdim=True)
@@ -330,7 +318,7 @@ def _encoder_layer(p: EncoderLayer, x: torch.Tensor, n_heads: int, stable_ln: bo
 def forward(model: Wav2Vec2, audio: torch.Tensor) -> torch.Tensor:
     """[B, samples] → CTC log-prob emissions [B, frames, vocab] (f32)."""
     cfg = model.config
-    with reference_matmul(), _no_tf32_convolutions():
+    with reference_matmul(), no_tf32_cudnn():
         feats = feature_extractor(model, audio.to(model.dtype))
         h = _layer_norm(model.feature_projection.ln, feats)
         h = _linear(model.feature_projection.proj, h)

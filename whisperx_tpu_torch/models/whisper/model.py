@@ -455,7 +455,7 @@ def decoder_forward(
     dec: TextDecoder,
     tokens: torch.Tensor,  # [B, T_new] int64
     cache: KVCache,
-    offset: int,  # number of tokens already in the cache
+    offset: Union[int, torch.Tensor],  # tokens already in the cache: int or [B]
     n_head: int,
     beam_groups: int = 1,
     capture_cross_qk: bool = False,
@@ -476,20 +476,40 @@ def decoder_forward(
     of every layer, [n_layer, B, H, T_new, 1500] f32, as JAX's
     ``decoder_forward(capture_cross_qk=True)``; with ``capture_heads``, a
     list of (layer, head), only those planes, [A, B, T_new, 1500], taken
-    layer by layer so the other heads' scores are never held together."""
+    layer by layer so the other heads' scores are never held together.
+
+    ``offset`` as a LongTensor [B]: each row starts at its own offset (the
+    speculative decode, whose rows accept their own number of tokens; JAX
+    gets this from ``jax.vmap`` of a B=1 loop). The position embedding is
+    gathered per row, the new K/V are index-written per row, and the causal
+    mask is [B, 1, T_new, cache_len]. As JAX's gather and
+    ``dynamic_update_slice`` do, a position past the table reads its last
+    row and a write that would overhang the cache starts earlier."""
     assert not (capture_cross_qk and beam_groups > 1), "the capture is per row"
     b, t_new = tokens.shape
     cache_len = cache.self_k[0].shape[1]
     device = tokens.device
+    k_pos = torch.arange(cache_len, device=device)
 
-    positions = torch.arange(offset, offset + t_new, device=device)
-    x = dec.tok_emb[tokens] + dec.pos_emb[positions][None]
-
-    # additive causal mask over the static cache: query i (global position
-    # offset+i) attends to cache slots 0..offset+i
-    k_pos = torch.arange(cache_len, device=device)[None, :]
-    self_mask = torch.zeros((t_new, cache_len), dtype=torch.float32, device=device)
-    self_mask.masked_fill_(k_pos > positions[:, None], float("-inf"))
+    if torch.is_tensor(offset):
+        steps = torch.arange(t_new, device=device)
+        positions = offset[:, None] + steps  # [B, T_new]
+        x = dec.tok_emb[tokens] + dec.pos_emb[positions.clamp(max=dec.pos_emb.shape[0] - 1)]
+        write_at = (
+            torch.arange(b, device=device)[:, None],
+            offset.clamp(max=cache_len - t_new)[:, None] + steps,
+        )
+        self_mask = torch.zeros((b, 1, t_new, cache_len), dtype=torch.float32, device=device)
+        self_mask.masked_fill_(k_pos > positions[:, None, :, None], float("-inf"))
+    else:
+        positions = torch.arange(offset, offset + t_new, device=device)
+        x = dec.tok_emb[tokens] + dec.pos_emb[positions][None]
+        write_at = (slice(None), slice(offset, offset + t_new))
+        # additive causal mask over the static cache: query i (global
+        # position offset+i) attends to cache slots 0..offset+i
+        self_mask = torch.zeros((t_new, cache_len), dtype=torch.float32, device=device)
+        self_mask.masked_fill_(k_pos[None, :] > positions[:, None], float("-inf"))
+        self_mask = self_mask[None, None]
     # the cross-decode opt-in, read once per pass (JAX reads it per layer)
     use_k3 = (
         t_new == 1 and beam_groups == 1 and not capture_cross_qk
@@ -502,11 +522,9 @@ def decoder_forward(
         q = _split_heads(linear(blk.attn.query, h), n_head)
         k = _split_heads(linear(blk.attn.key, h), n_head)
         v = _split_heads(linear(blk.attn.value, h), n_head)
-        cache.self_k[i][:, offset : offset + t_new] = k
-        cache.self_v[i][:, offset : offset + t_new] = v
-        attn = qkv_attention(
-            q, cache.self_k[i], cache.self_v[i], mask=self_mask[None, None]
-        )
+        cache.self_k[i][write_at] = k
+        cache.self_v[i][write_at] = v
+        attn = qkv_attention(q, cache.self_k[i], cache.self_v[i], mask=self_mask)
         x = x + linear(blk.attn.out, _merge_heads(attn))
 
         h = layer_norm(blk.cross_attn_ln, x)

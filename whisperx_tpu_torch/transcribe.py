@@ -33,10 +33,6 @@ _SUBTITLE_FLAGS = ("highlight_words", "max_line_count", "max_line_width")
 # (flag, predicate on the parsed flags, what brings it)
 _NOT_PORTED = (
     ("--diarize", lambda a: a["diarize"], "diarization: ROADMAP.md, Queue 1, item 12"),
-    ("--draft_model", lambda a: a["draft_model"] is not None,
-     "speculative decoding: ROADMAP.md, Queue 1, item 8"),
-    ("--vad_method pyannote/hybrid", lambda a: a["vad_method"] in ("pyannote", "hybrid"),
-     "the other VADs: ROADMAP.md, Queue 1, item 10"),
     ("--data_parallel on", lambda a: a["data_parallel"] == "on",
      "data parallelism: ROADMAP.md, Queue 1, item 13"),
 )

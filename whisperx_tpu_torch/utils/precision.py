@@ -22,3 +22,16 @@ def reference_matmul():
         yield
     finally:
         m.allow_tf32, m.allow_bf16_reduced_precision_reduction = saved
+
+
+@contextlib.contextmanager
+def no_tf32_cudnn():
+    """cuDNN's convolutions and recurrences (``nn.LSTM``) in full f32 inside,
+    the caller's setting after: by default cuDNN runs f32 as TF32, which
+    moves a VAD's or an aligner's CUDA outputs ~1e-3 away from the CPU's."""
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved

@@ -1,7 +1,7 @@
-"""The Silero-style hysteresis segmenter: per-window speech probs → segments.
+"""Silero VAD: the LSTM network (``models/silero_vad``) and the hysteresis
+segmenter every VAD feeds.
 
-The Silero network itself comes with the other VADs; this slice keeps the
-segmenter that every VAD feeds. It reproduces
+Counterpart of ``whisperx_tpu/vad/silero.py``. The segmenter reproduces
 ``get_speech_timestamps`` semantics (threshold / neg_threshold hysteresis,
 min/max speech duration with forced split at the last silence, speech
 padding) so options map 1:1: vad_onset → threshold, chunk_size →
@@ -11,14 +11,20 @@ max_speech_duration_s.
 from __future__ import annotations
 
 import math
-from typing import List, Optional
+from typing import List, Optional, Union
 
 import numpy as np
+import torch
 
 from whisperx_tpu_torch.audio.constants import SAMPLE_RATE
+from whisperx_tpu_torch.models.silero_vad.model import (
+    WINDOW_SIZE_SAMPLES,
+    SileroVADNet,
+    frame_audio,
+    init_params,
+    speech_probs,
+)
 from whisperx_tpu_torch.vad.types import SpeechSegment
-
-WINDOW_SIZE_SAMPLES = 512  # 32 ms @ 16 kHz, Silero's window
 
 
 def probs_to_speech_timestamps(
@@ -119,3 +125,68 @@ def probs_to_speech_timestamps(
             speech["end"] = int(min(audio_length_samples, speech["end"] + pad))
 
     return [SpeechSegment(s["start"] / sr, s["end"] / sr) for s in speeches]
+
+
+class SileroVAD:
+    """The Silero network with the reference's call contract:
+    ``vad({"waveform": audio, "sample_rate": sr})`` → list of SpeechSegment.
+    ``model``: a ``SileroVADNet`` (its device is the VAD's); without one,
+    random weights from a ``torch.Generator`` seeded with ``seed`` on
+    ``device``."""
+
+    supports_device_audio = True
+
+    def __init__(
+        self,
+        model: Optional[SileroVADNet] = None,
+        *,
+        vad_onset: float = 0.5,
+        chunk_size: float = 30.0,
+        seed: int = 0,
+        device: Union[str, torch.device] = "cuda",
+    ):
+        if model is None:
+            from whisperx_tpu_torch.models.whisper import resolve_device
+
+            model = init_params(torch.Generator(resolve_device(device)).manual_seed(seed))
+        self.model = model
+        self.vad_onset = vad_onset
+        self.chunk_size = chunk_size
+
+    @classmethod
+    def from_checkpoint(
+        cls, path: str, device: Union[str, torch.device] = "cuda", **kw
+    ) -> "SileroVAD":
+        """A converted Silero checkpoint (the JAX package's layout)."""
+        from whisperx_tpu_torch.convert.checkpoint import read_checkpoint, silero_from_numpy
+        from whisperx_tpu_torch.models.whisper import resolve_device
+
+        flat, _ = read_checkpoint(path)
+        return cls(silero_from_numpy(flat, device=resolve_device(device)), **kw)
+
+    def speech_probs(self, audio: Union[np.ndarray, torch.Tensor]) -> np.ndarray:
+        """Per-window speech probs of host audio or of a waveform already on
+        the VAD's device (then only the prob vector comes back)."""
+        if not isinstance(audio, torch.Tensor):
+            audio = torch.from_numpy(np.asarray(audio, np.float32).reshape(-1))
+        windows = frame_audio(audio.to(self.model.device, torch.float32))
+        return speech_probs(self.model, windows)[0].cpu().numpy()
+
+    def __call__(self, audio_dict, **options) -> List[SpeechSegment]:
+        wav = audio_dict["waveform"]
+        if isinstance(wav, torch.Tensor):
+            n = int(audio_dict.get("length", wav.shape[0]))
+            t = -(-n // WINDOW_SIZE_SAMPLES)
+            # zeros beyond `length` are the host path's zero-filled final
+            # window, so probs[:t] is the host result
+            probs = self.speech_probs(wav)[:t]
+        else:
+            audio = np.asarray(wav, np.float32).reshape(-1)
+            n = len(audio)
+            probs = self.speech_probs(audio)
+        return probs_to_speech_timestamps(
+            probs,
+            n,
+            threshold=options.get("threshold", self.vad_onset),
+            max_speech_duration_s=options.get("max_speech_duration_s", self.chunk_size),
+        )
