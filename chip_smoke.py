@@ -75,6 +75,21 @@ Phases, each of which passes or raises (the script then exits non-zero):
      PyanNet's log-scores within 1e-4, TF32 off), the same segments; and
      ``BatchVADProcessor`` over ``transcribe_many``'s three requests in one
      call;
+  10. diarization (after 9): 120 s of two harmonic voices (f0 110 and
+     260 Hz) in alternating turns of 3-8 s with pauses, from a fixed seed.
+     (a) the weightless default (energy VAD → SpectralEmbedding → AHC) on
+     CUDA and on the CPU: wall time, device time of the embedding (CUDA
+     events), windows, DER against the known turns; the same turns and
+     labels on both, embeddings within 1e-5; (b) the neural path: PyanNet
+     at the default config and the ResNet34 at ``ResNetSpeakerConfig()``
+     with seeded random weights, written with ``save_checkpoint`` and loaded
+     through ``WHISPERX_TPU_SEGMENTATION_CKPT`` and
+     ``WHISPERX_TPU_SPEAKER_CKPT``: device time of the segmentation and of
+     the embedding, the items (window × local speaker), peak memory; CUDA
+     against CPU embeddings within 1e-4 (TF32 off), the same activity and
+     turns; (c) ``assign_word_speakers`` over phase 4's transcript with
+     (a)'s turns on phase 4's 120 s; (d) the ResNet34 alone on 240 windows
+     of 2 s: device time beside its operation count;
   7. small model: f32 ``test-nano`` through the same pipeline on CUDA and on
      the CPU with the same weights; segments and greedy tokens must match,
      and the seek loop's segments and tokens too, and the words of word
@@ -82,7 +97,10 @@ Phases, each of which passes or raises (the script then exits non-zero):
      the CUDA greedy ones and the CPU's; the pyannote and hybrid VADs give
      the same segments on both; ``WHISPERX_TPU_FLASH=0`` raises on CUDA;
      then quantized to int8, its greedy and beam-2 tokens must match too,
-     and ``WHISPERX_TPU_NO_PALLAS_QUANT`` raises on CUDA.
+     and ``WHISPERX_TPU_NO_PALLAS_QUANT`` raises on CUDA; the CLI with
+     ``--diarize`` (and ``--diarize_clustering spectral``) writes the same
+     files on both devices, and ``load_pipeline(..., diarize=True)`` gives
+     the same result dict.
 
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA GPU, or without the
@@ -145,6 +163,13 @@ SPEC_INT8_SAMPLE_LEN = 48
 # after its last frame, so an aligned segment may end that much after its
 # transcript segment, and after the audio, as in JAX
 ALIGN_END_SLACK_S = 0.05
+DIAR_AUDIO_S = 120.0
+# diarization embeddings, CUDA against the CPU, both in full f32: the
+# spectral statistics only reorder f32 sums (~1e-7); the ResNet34's 36
+# convolutions in cuDNN's and the CPU's algorithms, with TF32 off, ~1e-6
+SPECTRAL_TOL = 1e-5
+RESNET_TOL = 1e-4
+RESNET_WINDOWS = 240  # phase 10(d): 2 s windows, as the pipeline cuts them
 
 
 def synth_speech(duration_s: float, sr: int = 16000, seed: int = 0):
@@ -220,16 +245,20 @@ class cross_decode_opt_in:
             os.environ[CROSS_DECODE_FLAG] = self.saved
 
 
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+
+
 def phase_card() -> str:
     import torch
 
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip()
     print(f"[card] {REPO}: torch {torch.__version__} cuda {torch.version.cuda} device {name}")
-    print(smi)  # name, power limit: as nvidia-smi prints them
+    print(card_line())
     return name
 
 
@@ -1613,6 +1642,69 @@ def phase_small_model() -> None:
     finally:
         del os.environ["WHISPERX_TPU_NO_PALLAS_QUANT"]
     print("[small] WHISPERX_TPU_FLASH=0 and WHISPERX_TPU_NO_PALLAS_QUANT raise ValueError on cuda")
+    phase_small_diarization(pipes["cpu"].model, audio)
+
+
+def phase_small_diarization(model, audio) -> None:
+    """test-nano f32 (the CPU model's weights, written with
+    ``save_checkpoint``) with diarization on both devices: the CLI with
+    ``--diarize`` and with ``--diarize --diarize_clustering spectral`` writes
+    the same files, and its encoder passes launch K1 n_audio_layer times
+    each; ``load_pipeline(..., diarize=True)`` gives the same result dict."""
+    import dataclasses
+
+    import whisperx_tpu_torch
+    from whisperx_tpu_torch.__main__ import build_parser
+    from whisperx_tpu_torch.audio import save_wav
+    from whisperx_tpu_torch.convert.checkpoint import save_checkpoint
+    from whisperx_tpu_torch.ops.flash_attention import flash_attention
+    from whisperx_tpu_torch.transcribe import transcribe_task
+    from whisperx_tpu_torch.utils.metrics import GLOBAL_TRACKER
+
+    clip = audio[: 16000 * 20]
+    with tempfile.TemporaryDirectory() as root:
+        ckpt = os.path.join(root, "nano")
+        save_checkpoint(ckpt, model, {"name": "test-nano", "family": "whisper",
+                                      "dims": dataclasses.asdict(model.dims)})
+        wav = os.path.join(root, "clip.wav")
+        save_wav(wav, clip)
+        for extra in (["--diarize"], ["--diarize", "--diarize_clustering", "spectral"]):
+            files = {}
+            for dev in ("cuda", "cpu"):
+                out = os.path.join(root, f"{dev}_{len(extra)}")
+                argv = [wav, "--model", ckpt, "--device", dev, "--compute_type", "float32",
+                        "--vad_method", "energy", "--language", "en", "--no_align", "-f", "all",
+                        "--temperature_increment_on_fallback", "None", "-o", out, *extra]
+                parser = build_parser()
+                GLOBAL_TRACKER.reset()
+                flash_attention.launches = 0
+                transcribe_task(parser.parse_args(argv).__dict__, parser)
+                if dev == "cuda":
+                    passes = GLOBAL_TRACKER.report()["decode"]["calls"]
+                    k1 = flash_attention.launches
+                    assert k1 == model.dims.n_audio_layer * passes > 0, (k1, passes)
+                files[dev] = {f: open(os.path.join(out, f), "rb").read() for f in sorted(os.listdir(out))}
+            assert files["cuda"] == files["cpu"] and len(files["cuda"]) == 5, sorted(files["cuda"])
+            tagged = json.loads(files["cuda"]["clip.json"])["segments"]
+            assert tagged and all("speaker" in seg for seg in tagged), tagged
+            print(
+                f"[small] test-nano f32 CLI {' '.join(extra)}: the same {len(files['cuda'])} files on cuda "
+                f"and cpu; {len(tagged)} segments, speakers {sorted({seg['speaker'] for seg in tagged})}; "
+                f"K1 launches {k1} (= {model.dims.n_audio_layer} x {passes} encoder passes)"
+            )
+        results = {
+            dev: whisperx_tpu_torch.load_pipeline(
+                ckpt, device=dev, compute_type="float32", vad_method="energy", language="en",
+                align=False, diarize=True, asr_options={"temperatures": (0.0,)},
+            )(clip)
+            for dev in ("cuda", "cpu")
+        }
+    assert results["cuda"] == results["cpu"] and results["cuda"]["segments"], results
+    assert all("speaker" in seg for seg in results["cuda"]["segments"])
+    print(
+        f"[small] test-nano f32 load_pipeline(diarize=True): the same result on cuda and cpu "
+        f"({len(results['cuda']['segments'])} segments with speakers)"
+    )
 
 
 def spec_run(pipe, audio, label, **options):
@@ -1942,6 +2034,247 @@ def phase_vads() -> None:
 
 
 
+def voice(f0: float, duration_s: float, bright: float = 1.0, seed: int = 0, sr: int = 16000):
+    """A synthetic voice: a harmonic series with a speaker-specific spectrum
+    (the recipe of the test suite's diarization tests)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(duration_s * sr)) / sr
+    f = f0 * (1 + 0.02 * np.sin(2 * np.pi * 0.7 * t))
+    phase = 2 * np.pi * np.cumsum(f) / sr
+    sig = sum((bright ** k / k) * np.sin(k * phase) for k in range(1, 8))
+    sig = sig + 0.01 * rng.standard_normal(len(t))
+    return (0.3 * sig / np.abs(sig).max()).astype(np.float32)
+
+
+def two_voices(duration_s: float, seed: int = 0, sr: int = 16000):
+    """Two voices (f0 110 and 260 Hz) taking alternating turns of 3-8 s with
+    pauses of 0.3-1.0 s: the audio and its turns (start, end, voice)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    parts, truth, t, i = [], [], 0.0, 0
+    while duration_s - t >= 3.0:
+        dur = float(min(rng.uniform(3.0, 8.0), duration_s - t))
+        f0, bright = (110.0, 0.95) if i % 2 == 0 else (260.0, 1.05)
+        parts.append(voice(f0, dur, bright, seed=seed * 1000 + i))
+        truth.append((t, t + len(parts[-1]) / sr, f"V{i % 2}"))
+        t += len(parts[-1]) / sr
+        gap = np.zeros(int(min(rng.uniform(0.3, 1.0), duration_s - t) * sr), np.float32)
+        parts.append(gap)
+        t += len(gap) / sr
+        i += 1
+    audio = np.concatenate(parts)
+    return np.pad(audio, (0, int(duration_s * sr) - len(audio))), truth
+
+
+class recorded:
+    """Inside: a diarization pipeline's embedding backend keeps the windows
+    it was given (``.inputs``) and the embeddings it returned."""
+
+    def __init__(self, pipe):
+        self.backend, self.inputs, self.outputs = pipe.embedding, None, None
+
+    def __enter__(self):
+        real = self.backend.embed
+
+        def embed(windows):
+            self.inputs, self.outputs = windows, real(windows)
+            return self.outputs
+
+        self.backend.embed = embed  # the instance's attribute shadows the method
+        return self
+
+    def __exit__(self, *exc):
+        del self.backend.embed
+
+
+def same_turns(label, got, want) -> None:
+    keys = ("start", "end", "speaker")
+    rows = lambda table: [tuple(r[k] for k in keys) for r in table]  # noqa: E731
+    assert rows(got) == rows(want), (label, rows(got)[:8], rows(want)[:8])
+
+
+def resnet_ops(cfg, frames: int) -> int:
+    """Multiply-adds × 2 of one ResNet window of ``frames`` 10 ms frames: every
+    convolution (stem, 3×3 pairs, 1×1 shortcuts) at its output size, and the
+    projection."""
+    h, w = frames, cfg.n_mels
+    macs = h * w * 9 * cfg.channels[0]  # stem, one input channel
+    c_in = cfg.channels[0]
+    for stage, (c, n) in enumerate(zip(cfg.channels, cfg.blocks)):
+        for b in range(n):
+            stride = 2 if stage > 0 and b == 0 else 1
+            h, w = -(-h // stride), -(-w // stride)
+            macs += h * w * 9 * (c_in * c + c * c)
+            if stride != 1 or c_in != c:
+                macs += h * w * c_in * c
+            c_in = c
+    macs += 2 * c_in * w * cfg.embed_dim
+    return 2 * macs
+
+
+def make_diarization_checkpoints(root: str) -> dict:
+    """PyanNet at the default ``PyanNetConfig`` (segmentation-3.0's shape: 7
+    powerset classes) and the ResNet34 at ``ResNetSpeakerConfig()``
+    (wespeaker-voxceleb-resnet34-LM's: channels 32/64/128/256, blocks
+    3/4/6/3, 80 mels, embedding 256), random weights from seeded
+    ``torch.Generator``s with ``init_params``' distributions, written with
+    the port's ``save_checkpoint``."""
+    import dataclasses
+
+    import torch
+
+    from whisperx_tpu_torch.convert.checkpoint import save_checkpoint
+    from whisperx_tpu_torch.models import pyannote, resnet_speaker
+
+    def config(cfg):
+        return {k: list(v) if isinstance(v, tuple) else v for k, v in dataclasses.asdict(cfg).items()}
+
+    paths = {"segmentation": os.path.join(root, "seg"), "speaker": os.path.join(root, "spk")}
+    cfg = pyannote.PyanNetConfig()
+    save_checkpoint(
+        paths["segmentation"], pyannote.init_params(cfg, torch.Generator("cuda").manual_seed(0)),
+        {"family": "pyannote_segmentation", "name": "seeded", "config": config(cfg)},
+    )
+    cfg = resnet_speaker.ResNetSpeakerConfig()
+    save_checkpoint(
+        paths["speaker"], resnet_speaker.init_params(cfg, torch.Generator("cuda").manual_seed(1)),
+        {"family": "resnet_speaker", "name": "seeded", "config": config(cfg)},
+    )
+    return paths
+
+
+def phase_diarization(main_result) -> None:
+    """Phase 10: the weightless default and the neural path at full width
+    on two voices, CUDA against the CPU; speaker assignment over the main
+    path's transcript; the ResNet34 alone on 240 windows."""
+    import numpy as np
+    import torch
+
+    from whisperx_tpu_torch.audio import SAMPLE_RATE
+    from whisperx_tpu_torch.diarize import DiarizationPipeline, assign_word_speakers
+    from whisperx_tpu_torch.models.pyannote import forward
+    from whisperx_tpu_torch.models.resnet_speaker import ResNetSpeakerConfig, embed
+    from whisperx_tpu_torch.utils import diarization_error_rate
+
+    for flag in ("WHISPERX_TPU_SPEAKER_CKPT", "WHISPERX_TPU_SEGMENTATION_CKPT",
+                 "WHISPERX_TPU_PLDA_CKPT", "WHISPERX_TPU_DIARIZE_CLUSTERING"):
+        os.environ.pop(flag, None)
+    audio, truth = two_voices(DIAR_AUDIO_S, seed=0)
+    devs = ("cuda", "cpu")
+
+    # (a) the weightless default: energy VAD → SpectralEmbedding → AHC
+    pipes = {dev: DiarizationPipeline(device=dev) for dev in devs}
+    pipes["cuda"](audio)  # warm-up
+    out, rec = {}, {}
+    for dev in devs:
+        with recorded(pipes[dev]) as rec[dev]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[dev] = pipes[dev](audio, return_embeddings=True)
+            torch.cuda.synchronize()
+            out[dev + " wall"] = time.perf_counter() - t0
+    same_turns("weightless", out["cuda"][0], out["cpu"][0])
+    assert np.array_equal(rec["cuda"].inputs, rec["cpu"].inputs)
+    err = float(np.abs(rec["cuda"].outputs - rec["cpu"].outputs).max())
+    assert err <= SPECTRAL_TOL, err
+    emb = pipes["cuda"].embedding
+    x = torch.from_numpy(rec["cuda"].inputs).cuda()
+    ms = cuda_ms(lambda: emb.features(x), iters=10, warmup=2)
+    der = diarization_error_rate(truth, out["cuda"][0])
+    turns = out["cuda"][0]
+    print(
+        f"[diarize] weightless (energy VAD, SpectralEmbedding, AHC) over {DIAR_AUDIO_S:.0f} s of two voices "
+        f"({len(truth)} turns): {out['cuda wall']:.3f} s wall on cuda ({out['cpu wall']:.3f} s on cpu); "
+        f"{len(x)} windows of 2 s, embedding {ms:.3f} ms of device time; {len(turns)} turns, "
+        f"{len(set(turns['speaker']))} speakers; DER {der['der']:.4f} (miss {der['miss']:.3f} s, false alarm "
+        f"{der['false_alarm']:.3f} s, confusion {der['confusion']:.3f} s of {der['total']:.3f} s; collar 0.25); "
+        f"CUDA against CPU: the same turns and labels, embeddings max_abs_err {err:.3e} (tol {SPECTRAL_TOL:g})"
+    )
+
+    # (b) the neural path at full width, checkpoints through the switches
+    with tempfile.TemporaryDirectory() as root:
+        paths = make_diarization_checkpoints(root)
+        os.environ["WHISPERX_TPU_SEGMENTATION_CKPT"] = paths["segmentation"]
+        os.environ["WHISPERX_TPU_SPEAKER_CKPT"] = paths["speaker"]
+        try:
+            neural = {dev: DiarizationPipeline(device=dev) for dev in devs}
+        finally:
+            del os.environ["WHISPERX_TPU_SEGMENTATION_CKPT"], os.environ["WHISPERX_TPU_SPEAKER_CKPT"]
+    assert neural["cuda"].vad_model is None and neural["cuda"].embedding.dim == 256
+    neural["cuda"](audio)  # warm-up
+    acts = {dev: neural[dev].segmenter.activity(audio) for dev in devs}
+    assert np.array_equal(acts["cuda"][0], acts["cpu"][0]) and acts["cuda"][2] == acts["cpu"][2]
+    torch.cuda.reset_peak_memory_stats()
+    for dev in devs:
+        with recorded(neural[dev]) as rec[dev]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[dev] = neural[dev](audio, return_embeddings=True)
+            torch.cuda.synchronize()
+            out[dev + " wall"] = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    assert np.array_equal(rec["cuda"].inputs, rec["cpu"].inputs)
+    err_n = float(np.abs(rec["cuda"].outputs - rec["cpu"].outputs).max())
+    assert err_n <= RESNET_TOL, err_n
+    same_turns("neural", out["cuda"][0], out["cpu"][0])
+    seg = neural["cuda"].segmenter
+    chunks = torch.from_numpy(seg.windows(audio)[0]).cuda()
+    ms_seg = cuda_ms(lambda: forward(seg.model, chunks), iters=3, warmup=1)
+    items = torch.from_numpy(rec["cuda"].inputs).cuda()
+    model = neural["cuda"].embedding.model
+    ms_emb = cuda_ms(lambda: embed(model, items), iters=3, warmup=1)
+    act = acts["cuda"][0]
+    print(
+        f"[diarize] neural (PyanNet default, 7 powerset classes; ResNet34 at ResNetSpeakerConfig(), "
+        f"seeded random weights through WHISPERX_TPU_SEGMENTATION_CKPT / WHISPERX_TPU_SPEAKER_CKPT): "
+        f"{act.shape[0]} windows of 10 s at a 5 s step, {act.shape[1]} frames each: segmentation "
+        f"{ms_seg:.3f} ms of device time; {len(items)} items (window x local speaker) embedded in "
+        f"{ms_emb:.3f} ms of device time; {out['cuda wall']:.3f} s wall on cuda ({out['cpu wall']:.3f} s on "
+        f"cpu); peak {peak:.2f} GiB; {len(out['cuda'][0])} turns; CUDA against CPU: the same activity and "
+        f"turns, embeddings max_abs_err {err_n:.3e} (tol {RESNET_TOL:g}, TF32 off)"
+    )
+
+    # (c) speaker assignment over the main path's transcript and audio
+    main_audio = synth_speech(MAIN_AUDIO_S, seed=1)
+    t0 = time.perf_counter()
+    main_turns = pipes["cuda"](main_audio)
+    torch.cuda.synchronize()
+    t_diar = time.perf_counter() - t0
+    segments = [dict(seg) for seg in main_result["segments"]]
+    t0 = time.perf_counter()
+    assigned = assign_word_speakers(main_turns, {"segments": segments})
+    t_assign = time.perf_counter() - t0
+    tagged = [s for s in assigned["segments"] if "speaker" in s]
+    assert assigned["segments"] and tagged, (len(main_turns), assigned["segments"][:3])
+    assert set(s["speaker"] for s in tagged) <= set(main_turns["speaker"])
+    print(
+        f"[diarize] main path's {MAIN_AUDIO_S:.0f} s: weightless diarization {t_diar:.3f} s wall, "
+        f"{len(main_turns)} turns; assign_word_speakers over its {len(segments)} segments "
+        f"{t_assign * 1e3:.3f} ms, {len(tagged)} tagged ({len(set(s['speaker'] for s in tagged))} speakers)"
+    )
+
+    # (d) the ResNet34 alone: 240 windows of 2 s
+    windows = torch.from_numpy(
+        np.stack([audio[i * 7200 :][: 2 * SAMPLE_RATE] for i in range(RESNET_WINDOWS)])  # 0.45 s hop
+    ).cuda()
+    torch.cuda.reset_peak_memory_stats()
+    ms_d = cuda_ms(lambda: embed(model, windows), iters=3, warmup=1)
+    peak_d = torch.cuda.max_memory_allocated() / 2**30
+    cfg = ResNetSpeakerConfig()
+    ops = resnet_ops(cfg, windows.shape[1] // 160)
+    print(
+        f"[diarize] ResNet34 on {RESNET_WINDOWS} windows of 2 s: {ms_d:.3f} ms of device time; "
+        f"{ops / 1e9:.3f} GFLOP a window, {ops * RESNET_WINDOWS / 1e12:.3f} TFLOP in all: "
+        f"{ops * RESNET_WINDOWS / (ms_d * 1e-3) / 1e12:.2f} TFLOP/s against {PEAK_OPS_PER_S['torch.float32'] / 1e12:.0f} "
+        f"(f32, TF32 off); peak {peak_d:.2f} GiB"
+    )
+    del pipes, neural, model, windows, items, chunks
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "whisperx_tpu_torch")):
         print("chip_smoke: whisperx_tpu_torch/ not found beside this script", file=sys.stderr)
@@ -2002,12 +2335,14 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
     phase_vads()
+    phase_diarization(main_result)
     phase_small_model()
     for label, (entry, fn, attr) in unused.items():
         entry["launches"] = getattr(fn, attr)
         print(f"[paths] {label} launches over every path: {entry['launches']}")
         assert entry["launches"] == 0, (label, entry["launches"])
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
+    print(card_line())  # again here: a long log's head may be cut off
     print(json.dumps({"kernels": [k1, k1b, k2, k3, k3kt, k3i8, k4]}))
     print(json.dumps({
         "ok": True,

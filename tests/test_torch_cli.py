@@ -3,9 +3,9 @@ choices and defaults (but ``--device`` and ``--version``); byte-identical
 transcripts from the same f32 checkpoint, with the default beam search, the
 int8 path, the sequential modes (``--vad_method none``, ``--backend
 sequential``), word timing, forced alignment (with no aligner checkpoint,
-and with one), speculative decoding and the other VADs; and every flag of a
-stage not ported yet raises ``NotImplementedError`` naming its ROADMAP.md
-item, before anything loads."""
+and with one), speculative decoding, the other VADs and diarization; and
+the flag of a stage not ported yet (``--data_parallel on``) raises
+``NotImplementedError`` naming its ROADMAP.md item, before anything loads."""
 
 import dataclasses
 import json
@@ -193,11 +193,15 @@ def _same_outputs(jax_dir, torch_dir):
 
 # flags of stages that are not ported raise; the ported ones (alignment,
 # word timing, the silence threshold, the seek loop with word timing,
-# speculative decoding, the pyannote and hybrid VADs) write what the JAX CLI
-# writes
+# speculative decoding, the pyannote and hybrid VADs, diarization) write
+# what the JAX CLI writes
 WORDS = {"--word_timestamps True", "--vad_method none --word_timestamps True"}
 PORTED = WORDS | {"align", "--hallucination_silence_threshold 2", "--draft_model tiny",
-                  "--vad_method pyannote", "--vad_method hybrid"}
+                  "--vad_method pyannote", "--vad_method hybrid", "--diarize",
+                  "--backend sequential --diarize"}
+# the diarization switches, unset: the weightless default models
+DIARIZE_SWITCHES = ("WHISPERX_TPU_SPEAKER_CKPT", "WHISPERX_TPU_SEGMENTATION_CKPT",
+                    "WHISPERX_TPU_PLDA_CKPT", "WHISPERX_TPU_DIARIZE_CLUSTERING")
 
 
 @pytest.mark.parametrize(
@@ -208,7 +212,7 @@ PORTED = WORDS | {"align", "--hallucination_silence_threshold 2", "--draft_model
         ("--hallucination_silence_threshold", "2"),
         ("--draft_model", "tiny"),
         # the sequential modes run (test_cli_sequential_modes_write_the_same_
-        # files_as_jax); with a stage that is not ported they still refuse
+        # files_as_jax), and with diarization after the seek loop
         pytest.param(("--backend", "sequential", "--diarize"), id="--backend sequential"),
         pytest.param(
             ("--vad_method", "none", "--word_timestamps", "True"), id="--vad_method none"
@@ -222,15 +226,17 @@ PORTED = WORDS | {"align", "--hallucination_silence_threshold 2", "--draft_model
 )
 def test_not_ported_flags_raise(workdir, extra, monkeypatch, capsys):
     """A flag of a stage that is not ported raises ``NotImplementedError``
-    naming its ROADMAP.md item before anything is written (``--diarize``,
-    ``--data_parallel on``). The ported cases run instead and write what the
-    JAX CLI writes: alignment with no aligner checkpoint (both skip it, with
-    a message), word timing in the batched pipeline and in the seek loop,
-    the hallucination-silence threshold with it, speculative decoding with
-    a random ``tiny`` draft (token-identical to greedy whatever the draft's
-    weights; the CLI's beam 5 is dropped with a warning in both), and the
+    naming its ROADMAP.md item before anything is written (``--data_parallel
+    on``). The ported cases run instead and write what the JAX CLI writes:
+    alignment with no aligner checkpoint (both skip it, with a message),
+    word timing in the batched pipeline and in the seek loop, the
+    hallucination-silence threshold with it, speculative decoding with a
+    random ``tiny`` draft (token-identical to greedy whatever the draft's
+    weights; the CLI's beam 5 is dropped with a warning in both), the
     pyannote and hybrid VADs without checkpoints (energy scores through
-    Binarize; the energy fallback)."""
+    Binarize; the energy fallback), and diarization with the weightless
+    default (energy VAD windows, spectral embeddings, AHC) after the batched
+    pipeline and after the seek loop: every segment gets a speaker."""
     case = " ".join(extra) or "align"
     argv = _argv(workdir, "refused", "float32")
     if not extra:
@@ -250,6 +256,8 @@ def test_not_ported_flags_raise(workdir, extra, monkeypatch, capsys):
     monkeypatch.delenv("WHISPERX_TPU_ALIGN_DIR", raising=False)
     monkeypatch.delenv("WHISPERX_TPU_ALLOW_RANDOM_ALIGN", raising=False)
     monkeypatch.delenv("WHISPERX_TPU_SILERO_CKPT", raising=False)
+    for name in DIARIZE_SWITCHES:
+        monkeypatch.delenv(name, raising=False)
     out = case.replace(" ", "_").strip("-")
     dirs = {}
     for pkg in ("jax", "torch"):
@@ -270,6 +278,52 @@ def test_not_ported_flags_raise(workdir, extra, monkeypatch, capsys):
     assert "word_segments" not in result
     for w in words:
         assert 0.0 <= w["start"] <= w["end"] <= 10.0
+    if "--diarize" in extra:
+        assert result["segments"] and all(s["speaker"].startswith("SPEAKER_") for s in result["segments"])
+
+
+@pytest.mark.parametrize(
+    "extra",
+    [
+        ("--diarize", "--speaker_embeddings"),
+        ("--diarize", "--diarize_clustering", "spectral", "--min_speakers", "2", "--max_speakers", "3"),
+        ("--diarize", "--diarize_clustering", "plda", "--max_speakers", "1"),
+        ("--speaker_embeddings",),
+    ],
+    ids=" ".join,
+)
+def test_cli_diarization_options_write_the_same_files_as_jax(workdir, extra, monkeypatch):
+    """The diarization flags: ``--speaker_embeddings`` adds each speaker's
+    mean embedding to the JSON (compared parsed, within 1e-5: the float
+    reprs of two implementations differ; every other file byte-identical);
+    ``--diarize_clustering`` and the speaker bounds; ``--speaker_embeddings``
+    without ``--diarize`` is ignored with JAX's warning."""
+    for name in DIARIZE_SWITCHES + ("WHISPERX_TPU_SILERO_CKPT",):
+        monkeypatch.delenv(name, raising=False)
+    out = "_".join(a.strip("-") for a in extra)
+    dirs = {}
+    for pkg in ("jax", "torch"):
+        dirs[pkg] = workdir / f"{pkg}_{out}"
+        argv = _argv(workdir, str(dirs[pkg]), "float32", *extra, "--data_parallel", "off")
+        argv[argv.index("-o") + 1] = str(dirs[pkg])
+        if "--diarize" in extra:
+            _run(pkg, argv)
+        else:
+            with pytest.warns(UserWarning, match="ignoring --speaker_embeddings: requires --diarize"):
+                _run(pkg, argv)
+    want, got = _outputs(dirs["jax"]), _outputs(dirs["torch"])
+    for f in OUTPUTS:
+        if f != "json":
+            assert got[f] == want[f], f
+    want, got = json.loads(want["json"]), json.loads(got["json"])
+    want_emb, got_emb = want.pop("speaker_embeddings", None), got.pop("speaker_embeddings", None)
+    assert got == want
+    assert (got_emb is None) == (want_emb is None) == ("--speaker_embeddings" not in extra or "--diarize" not in extra)
+    if want_emb is not None:
+        assert sorted(got_emb) == sorted(want_emb)
+        for name in want_emb:
+            np.testing.assert_allclose(got_emb[name], want_emb[name], atol=1e-5, rtol=0)
+    assert all(("speaker" in s) == ("--diarize" in extra) for s in got["segments"])
 
 
 @pytest.fixture(scope="module")

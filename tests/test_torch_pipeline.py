@@ -87,12 +87,15 @@ def test_fallback_temperatures_rerun_failing_chunks(nano_ckpt, speech35):
 def test_port_runs_without_jax(nano_ckpt):
     """A fresh interpreter imports the port (its CLI, orchestrator, backends,
     seek loop, kernels' modules, quantization, alignment, word timing and
-    the native audio library, speculative decoding and every VAD too),
-    transcribes with word timestamps, with a VAD and without, with a
-    ``self:1`` draft behind the pyannote VAD, runs the Silero network
-    through the batch processor, and aligns (random weights, allowed by the
-    suite's ``WHISPERX_TPU_ALLOW_RANDOM_ALIGN``); neither jax nor any module
-    of the JAX package is loaded."""
+    the native audio library, speculative decoding, every VAD, diarization
+    and the unified pipeline too), transcribes with word timestamps, with a
+    VAD and without, with a ``self:1`` draft behind the pyannote VAD, runs
+    the Silero network through the batch processor, aligns (random weights,
+    allowed by the suite's ``WHISPERX_TPU_ALLOW_RANDOM_ALIGN``), diarizes on
+    both paths (the ResNet embedding with PLDA clustering; a segmenter) and
+    scores the turns, and runs ``load_pipeline`` with diarization; neither
+    jax nor any module of the JAX package is loaded, nor pandas by the
+    imports."""
     code = textwrap.dedent(
         f"""
         import sys
@@ -113,6 +116,16 @@ def test_port_runs_without_jax(nano_ckpt):
         import whisperx_tpu_torch.models.silero_vad
         import whisperx_tpu_torch.vad.batch
         import whisperx_tpu_torch.vad.pyannote_vad
+        import whisperx_tpu_torch.diarize
+        import whisperx_tpu_torch.diarize.plda
+        import whisperx_tpu_torch.models.resnet_speaker
+        import whisperx_tpu_torch.pipeline
+        import whisperx_tpu_torch.pipeline.batch_processor
+        import whisperx_tpu_torch.utils.metrics
+        import whisperx_tpu_torch.utils.wer
+        # no module of the port imports pandas (alignment's optional nltk
+        # may, when it runs)
+        assert not [m for m in sys.modules if m == "pandas" or m.startswith("pandas.")]
         t = np.arange(16000 * 12) / 16000
         audio = (0.3 * np.sin(2 * np.pi * 220 * t) * (np.sin(2 * np.pi * 0.3 * t) > 0)).astype(np.float32)
         pipe = whisperx_tpu_torch.load_model(
@@ -140,6 +153,25 @@ def test_port_runs_without_jax(nano_ckpt):
         )
         out = seq.transcribe(audio, language="en", temperatures=(0.0,), sample_len=16)
         assert out["language"] == "en", out
+        from whisperx_tpu_torch.diarize import DiarizationPipeline, SpeakerSegmenter
+        from whisperx_tpu_torch.models.resnet_speaker import ResNetSpeakerEmbedding
+        from whisperx_tpu_torch.vad import EnergyVAD
+        turns = DiarizationPipeline(
+            device="cpu", clustering="plda", vad_model=EnergyVAD(),
+            embedding_model=ResNetSpeakerEmbedding(device="cpu"),
+        )(audio)
+        assert len(turns) and whisperx_tpu_torch.utils.diarization_error_rate(turns, turns)["der"] == 0.0
+        seg = DiarizationPipeline(device="cpu", segmentation_model=SpeakerSegmenter(device="cpu"))
+        seg(audio, num_speakers=2)
+        unified = whisperx_tpu_torch.load_pipeline(
+            {nano_ckpt!r}, device="cpu", vad_method="energy", compute_type="float32",
+            language="en", align=False, diarize=True,
+            asr_options={{"temperatures": (0.0,), "sample_len": 16}},
+        )
+        out = unified(audio)
+        assert all("speaker" in s for s in out["segments"]) and out["segments"], out
+        assert whisperx_tpu_torch.utils.metrics.device_memory_report() == {{}}
+        assert whisperx_tpu_torch.utils.wer.wer("a b", "a c") == 0.5
         bad = sorted(
             m for m in sys.modules
             if m == "jax" or m.startswith("jax.") or m == "jaxlib"

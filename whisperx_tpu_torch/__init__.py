@@ -14,6 +14,10 @@ _LAZY = {
     "load_audio": ("whisperx_tpu_torch.audio", "load_audio"),
     "load_align_model": ("whisperx_tpu_torch.alignment", "load_align_model"),
     "align": ("whisperx_tpu_torch.alignment", "align"),
+    "assign_word_speakers": ("whisperx_tpu_torch.diarize", "assign_word_speakers"),
+    "load_pipeline": ("whisperx_tpu_torch.pipeline", "load_pipeline"),
+    "load_tpu_pipeline": ("whisperx_tpu_torch.pipeline", "load_tpu_pipeline"),
+    "DiarizationPipeline": ("whisperx_tpu_torch.diarize", "DiarizationPipeline"),
 }
 
 __all__ = ["__version__", *_LAZY]

@@ -116,6 +116,21 @@ def _frame_signal(padded: torch.Tensor, n_frames: int) -> torch.Tensor:
     return torch.cat([a, b, c], dim=-1)  # [..., n_frames, N_FFT]
 
 
+def reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """``np.pad(x, pad, mode="reflect")`` along the last axis: PyTorch's
+    reflect mode where the axis is longer than ``pad``; shorter, the
+    reflection wraps again, with period 2·(n-1), as numpy's and JAX's do
+    (``F.pad`` refuses such inputs)."""
+    n = x.shape[-1]
+    if n > pad:
+        return F.pad(x, (pad, pad), mode="reflect")
+    i = torch.arange(-pad, n + pad, device=x.device)
+    if n == 1:
+        return x[..., torch.zeros_like(i)]
+    m = torch.remainder(i, 2 * (n - 1))
+    return x[..., torch.where(m < n, m, 2 * (n - 1) - m)]
+
+
 def _stft_power(padded: torch.Tensor, n_frames: int) -> torch.Tensor:
     """[..., L] → power spectrum [..., n_frames, n_freqs] via a framed matmul."""
     frames = _frame_signal(padded, n_frames)
@@ -136,7 +151,7 @@ def _log_mel_batch_body(audio: torch.Tensor, n_mels: int) -> torch.Tensor:
     gather (``audio/device_chunk.py``)."""
     half = N_FFT // 2
     n_frames = audio.shape[-1] // HOP_LENGTH
-    padded = F.pad(audio, (half, half), mode="reflect")
+    padded = reflect_pad(audio, half)
     magnitudes = _stft_power(padded, n_frames)  # [N, T, F]
     filters = _mel_filters_tensor(n_mels, audio.device)
     mel_spec = torch.matmul(magnitudes, filters.T)  # [N, T, n_mels]

@@ -1,7 +1,9 @@
 """Reader and writer of the checkpoint directories the JAX package writes,
 and the weight bridges from its flat parameter names onto the port's
 modules (``params_from_numpy`` for Whisper, ``wav2vec2_from_numpy`` for the
-aligner, ``silero_from_numpy`` and ``pyannote_from_numpy`` for the VADs).
+aligner, ``silero_from_numpy`` and ``pyannote_from_numpy`` for the VADs and
+diarization's segmenter, ``resnet_speaker_from_numpy`` for the speaker
+embedding).
 
 A checkpoint directory holds (``whisperx_tpu/convert/checkpoint.py``):
   - ``weights.npz``   : flat ``{"a/b/0/w": array}`` mapping of the param tree
@@ -55,9 +57,11 @@ def flatten_tree(model) -> Dict[str, np.ndarray]:
     """A port model's weights in the layout of the JAX package's
     ``flatten_tree``: ``a/b/0/w`` names, quantized linears under
     ``<path>/__quantized_linear__/{qw,scale,b,meta}``, bf16 widened to f32
-    (numpy has no bf16). The VAD networks, whose modules hold torch's LSTM
-    and conv layouts, go through ``silero_to_numpy``/``pyannote_to_numpy``."""
+    (numpy has no bf16). The networks whose modules hold torch's LSTM and
+    conv layouts go through ``silero_to_numpy``, ``pyannote_to_numpy`` and
+    ``resnet_speaker_to_numpy``."""
     from whisperx_tpu_torch.models.pyannote.model import PyanNet
+    from whisperx_tpu_torch.models.resnet_speaker.model import ResNetSpeaker
     from whisperx_tpu_torch.models.silero_vad.model import SileroVADNet
     from whisperx_tpu_torch.quant.core import QuantizedLinear
 
@@ -65,6 +69,8 @@ def flatten_tree(model) -> Dict[str, np.ndarray]:
         return silero_to_numpy(model)
     if isinstance(model, PyanNet):
         return pyannote_to_numpy(model)
+    if isinstance(model, ResNetSpeaker):
+        return resnet_speaker_to_numpy(model)
     flat = {name.replace(".", "/"): _array(p) for name, p in model.named_parameters()}
     for name, mod in model.named_modules():
         if isinstance(mod, QuantizedLinear):
@@ -339,6 +345,41 @@ def pyannote_from_numpy(
     for name in ("wav_norm", "sincnet", "linear", "classifier"):
         setattr(non_lstm, name, getattr(model, name))
     _copy_params(non_lstm, {k: np.asarray(v) for k, v in state.items()}, dtype, cfg)
+    return model.eval()
+
+
+def resnet_speaker_to_numpy(model) -> Dict[str, np.ndarray]:
+    """A ``ResNetSpeaker`` as the JAX package's flat tree: ``stem/{w,bn/*}``,
+    ``stages/<s>/<b>/{conv1,bn1/*,conv2,bn2/*,down/{w,bn/*}}``,
+    ``proj/{w,b}``; convolutions back to HWIO ([k, k, I, O])."""
+    flat = {}
+    for name, p in model.named_parameters():
+        arr = _array(p)
+        if arr.ndim == 4:  # OIHW → HWIO
+            arr = np.ascontiguousarray(arr.transpose(2, 3, 1, 0))
+        flat[name.replace(".", "/")] = arr
+    return flat
+
+
+@torch.no_grad()
+def resnet_speaker_from_numpy(
+    flat: Dict[str, np.ndarray],
+    cfg,
+    dtype: torch.dtype = torch.float32,
+    device: Union[str, torch.device] = "cuda",
+):
+    """Build a ``ResNetSpeaker`` of config ``cfg`` from the JAX package's flat
+    tree (its ``init_params`` or the wespeaker converter's): every 4-D array
+    is a convolution, HWIO → torch's OIHW. A missing, unexpected or
+    misshapen name raises."""
+    from whisperx_tpu_torch.models.resnet_speaker.model import ResNetSpeaker
+
+    model = ResNetSpeaker(cfg, dtype=dtype, device=device)
+    state = {
+        k: np.asarray(v).transpose(3, 2, 0, 1) if np.ndim(v) == 4 else np.asarray(v)
+        for k, v in flat.items()
+    }
+    _copy_params(model, state, dtype, cfg)
     return model.eval()
 
 

@@ -1,11 +1,10 @@
 """CLI orchestrator: VAD and ASR over every input file, forced alignment,
-then the writers.
+diarization and speaker assignment, then the writers.
 
 Counterpart of ``whisperx_tpu/transcribe.py`` (reference
-whisperx/transcribe.py:17-250). The JAX package's diarization phase is not
-ported yet: its flags raise ``NotImplementedError`` naming the ROADMAP.md
-item that brings them, before anything is loaded, as do the other flags of
-stages the port does not run.
+whisperx/transcribe.py:17-250). ``--data_parallel on`` is not ported yet: it
+raises ``NotImplementedError`` naming the ROADMAP.md item that brings it,
+before anything is loaded.
 """
 
 from __future__ import annotations
@@ -32,7 +31,6 @@ _SUBTITLE_FLAGS = ("highlight_words", "max_line_count", "max_line_width")
 
 # (flag, predicate on the parsed flags, what brings it)
 _NOT_PORTED = (
-    ("--diarize", lambda a: a["diarize"], "diarization: ROADMAP.md, Queue 1, item 12"),
     ("--data_parallel on", lambda a: a["data_parallel"] == "on",
      "data parallelism: ROADMAP.md, Queue 1, item 13"),
 )
@@ -81,6 +79,7 @@ def transcribe_task(args: dict, parser: argparse.ArgumentParser):
     from whisperx_tpu_torch.alignment import align, load_align_model
     from whisperx_tpu_torch.asr import load_model
     from whisperx_tpu_torch.audio import load_audio
+    from whisperx_tpu_torch.diarize import DiarizationPipeline, assign_word_speakers
 
     take = args.pop  # every consumed flag leaves `args`; the remainder
     # (language + subtitle flags) is validated below
@@ -106,22 +105,26 @@ def transcribe_task(args: dict, parser: argparse.ArgumentParser):
     task = take("task")
     no_align = no_align or task == "translate"  # translations can't align
     return_char_alignments = take("return_char_alignments")
-    for unused in (
-        "hf_token", "diarize", "min_speakers", "max_speakers", "diarize_model",
-        "diarize_clustering", "data_parallel",
-    ):
-        take(unused, None)  # their stages are refused above or not asked for
+    hf_token = take("hf_token")
+    take("data_parallel", None)  # "on" is refused above
     vad_options = {
         "chunk_size": take("chunk_size"),
         "vad_onset": take("vad_onset"),
         "vad_offset": take("vad_offset"),
     }
     vad_method = take("vad_method")
+
+    diarize = take("diarize")
+    min_speakers, max_speakers = take("min_speakers"), take("max_speakers")
+    diarize_model_name = take("diarize_model")
+    diarize_clustering = take("diarize_clustering", None)
     print_progress = take("print_progress")
-    if take("speaker_embeddings"):
-        warnings.warn("ignoring --speaker_embeddings: requires --diarize")
+    return_speaker_embeddings = take("speaker_embeddings")
     for ignored in ("fp16", "segment_resolution", "threads"):
         take(ignored, None)  # accepted for CLI parity, no-ops as in JAX
+
+    if return_speaker_embeddings and not diarize:
+        warnings.warn("ignoring --speaker_embeddings: requires --diarize")
 
     args["language"] = _canonical_language(args["language"], model_name)
     align_language = args["language"] or "en"
@@ -216,7 +219,26 @@ def transcribe_task(args: dict, parser: argparse.ArgumentParser):
                 print_progress=print_progress,
             )
 
-    # Part 3: write outputs.
+    # Part 3: diarization + speaker assignment, on the same device.
+    if diarize:
+        print(">>Performing diarization...")
+        print(">>Using model:", diarize_model_name)
+        diarize_model = DiarizationPipeline(
+            model_name=diarize_model_name, use_auth_token=hf_token,
+            device=torch_device, clustering=diarize_clustering,
+        )
+        for audio_path, result in results.items():
+            diarize_out = diarize_model(
+                audio_path,
+                min_speakers=min_speakers, max_speakers=max_speakers,
+                return_embeddings=return_speaker_embeddings,
+            )
+            turns, spk_emb = (
+                diarize_out if return_speaker_embeddings else (diarize_out, None)
+            )
+            results[audio_path] = assign_word_speakers(turns, result, spk_emb)
+
+    # Part 4: write outputs.
     for audio_path, result in results.items():
         result = dict(result)
         result.setdefault("language", align_language)

@@ -14,10 +14,8 @@ from whisperx_tpu_torch.utils.text import (
     optional_int,
     str2bool,
 )
+from whisperx_tpu_torch.utils.der import diarization_error_rate, load_rttm, save_rttm
 from whisperx_tpu_torch.utils.writers import get_writer
-
-# the diarization-error functions (utils/der.py) come with diarization
-# (ROADMAP.md, Queue 1, item 12)
 
 __all__ = [
     "LANGUAGES",
@@ -33,4 +31,7 @@ __all__ = [
     "optional_int",
     "str2bool",
     "get_writer",
+    "diarization_error_rate",
+    "load_rttm",
+    "save_rttm",
 ]

@@ -123,3 +123,11 @@ class RTFTracker:
 
 
 GLOBAL_TRACKER = RTFTracker()
+
+
+def device_memory_report() -> Dict[str, dict]:
+    """The caching allocator's statistics per visible CUDA device
+    (``pipeline.batch_processor.optimize_memory``); empty without a GPU."""
+    from whisperx_tpu_torch.pipeline.batch_processor import optimize_memory
+
+    return optimize_memory()
