@@ -68,6 +68,33 @@ Phases, each of which passes or raises (the script then exits non-zero):
   8b. speculative int8 (after 6, on its int8 model and the CLI's 60 s,
      48 tokens a row): ``self:4``; K4's launches per shape as the code implies (draft steps
      at M 8, verify passes at M 40), Σ launches × ms against the bound;
+  11. serving (after 8, on the main path's model, its weights shared; one
+     temperature, as ``serve --temperature_increment_on_fallback 0``):
+     (a) ``TranscriptionServer(max_batch_size=3, max_wait_ms=500)`` with
+     ``start_background(port=0)``, ``/healthz`` 200; (b) three clients POST
+     at once over ``urllib``: a 21 s WAV, a 25 s body of raw PCM i16 at
+     44.1 kHz, a 29 s multipart upload with ``response_format=verbose_json``
+     (seeds 7-9, one (20, 30] s duration bucket): all 200, segments inside
+     their audio, 3 requests in 1 batch, K1 32 × the encoder passes; each
+     request's wall time, the batch's, ``throughput_rtf``, ``/metrics``
+     lines, peak memory; (c) a POST with ``?align=true&diarize=true`` (phase
+     4c's aligner): words inside their segments, every segment with a
+     speaker; (d) two WebSocket sessions, one after the other, of speech
+     in 0.5 s frames at real time, then ``{"op": "end"}``: 8 s with
+     ``partial_interval=2`` (a partial before its first final), 20 s with
+     ``diarize=true`` (at least 3 finals: the first ends on a pause,
+     before the 5 s cap, then the cap and the tail; every segment carries
+     a speaker, and a diarization warning fails the phase); finals
+     contiguous over each stream; K1 32 × (final + partial decodes); the
+     time to the first partial and to each final, the finals' latency p50
+     / p95; then ``IncrementalUtteranceDecoder`` (budget 64) over 3, 3 and
+     4 s of one utterance: the third replays the committed tokens, K1 32 ×
+     3; and ``warmup_streaming`` at a 0 s cap and a budget of 64: 4 calls,
+     one of them a chunk decoded with a 32-token prompt, K1 32 × (chunk
+     decodes + 2 partials); (e) the precision flags as before the
+     phase. Random weights decode every token of the budget (longer than
+     the 5 s latency cap), so a session gives at most one partial, and each
+     latency is a worst case;
   9. VADs: Silero (2 × LSTM 64) and PyanNet (the default config) with
      seeded random weights written by ``save_checkpoint`` and loaded with
      ``load_vad_model`` by path, over 120 s: device time of each forward
@@ -100,7 +127,12 @@ Phases, each of which passes or raises (the script then exits non-zero):
      and ``WHISPERX_TPU_NO_PALLAS_QUANT`` raises on CUDA; the CLI with
      ``--diarize`` (and ``--diarize_clustering spectral``) writes the same
      files on both devices, and ``load_pipeline(..., diarize=True)`` gives
-     the same result dict.
+     the same result dict; the f32 test-nano server over the CUDA pipeline
+     and over the CPU one gives the same body for a WAV POST and the same
+     finals for a long-poll stream, and ``python -m
+     whisperx_tpu_torch.serve --model <nano dir> --device cuda`` as a
+     subprocess answers ``/healthz`` and one POST, then exits 0 within 10 s
+     of SIGTERM.
 
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA GPU, or without the
@@ -170,6 +202,15 @@ DIAR_AUDIO_S = 120.0
 SPECTRAL_TOL = 1e-5
 RESNET_TOL = 1e-4
 RESNET_WINDOWS = 240  # phase 10(d): 2 s windows, as the pipeline cuts them
+# phase 11: three requests of one (20, 30] s duration bucket (one serving
+# batch), one aligned and diarized request, two WebSocket streams: one with
+# partials, ended while its partial decodes; one diarized, long enough that
+# its first chunk's decode (8-12 s on random weights) ends before the
+# stream does, so it flushes on a pause, then by the latency cap, then the
+# tail
+SERVE_AUDIO_S = (21.0, 25.0, 29.0)
+SERVE_ALIGN_S = 12.0
+SERVE_STREAM_S = {"partials": 8.0, "diarize": 20.0}
 
 
 def synth_speech(duration_s: float, sr: int = 16000, seed: int = 0):
@@ -1643,6 +1684,7 @@ def phase_small_model() -> None:
         del os.environ["WHISPERX_TPU_NO_PALLAS_QUANT"]
     print("[small] WHISPERX_TPU_FLASH=0 and WHISPERX_TPU_NO_PALLAS_QUANT raise ValueError on cuda")
     phase_small_diarization(pipes["cpu"].model, audio)
+    phase_small_serving({dev: p.model for dev, p in pipes.items()})
 
 
 def phase_small_diarization(model, audio) -> None:
@@ -2275,6 +2317,475 @@ def phase_diarization(main_result) -> None:
     torch.cuda.empty_cache()
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def wav_bytes(audio, sr: int = 16000) -> bytes:
+    """16-bit mono WAV bytes of float samples in [-1, 1]."""
+    import io
+    import wave
+
+    import numpy as np
+
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(sr)
+        w.writeframes((np.asarray(audio) * 32767).astype(np.int16).tobytes())
+    return buf.getvalue()
+
+
+def multipart(fields: dict):
+    """A multipart/form-data body (name → bytes for a file, str for a field)
+    and its Content-Type, as the OpenAI SDK sends it."""
+    boundary = "smokeboundary7"
+    out = b""
+    for name, val in fields.items():
+        out += f"--{boundary}\r\n".encode()
+        if isinstance(val, bytes):
+            out += (f'Content-Disposition: form-data; name="{name}"; filename="clip.wav"\r\n'
+                    "Content-Type: application/octet-stream\r\n\r\n").encode() + val + b"\r\n"
+        else:
+            out += f'Content-Disposition: form-data; name="{name}"\r\n\r\n{val}\r\n'.encode()
+    return out + f"--{boundary}--\r\n".encode(), f"multipart/form-data; boundary={boundary}"
+
+
+def http(url: str, body=None, headers=None, timeout: float = 600.0):
+    """(status, Content-Type, body bytes) of one request over urllib."""
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body, headers=headers or {}, method="GET" if body is None else "POST")
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        return resp.status, resp.headers["Content-Type"], resp.read()
+
+
+class WSClient:
+    """A minimal RFC 6455 client (masked frames, as the RFC requires of
+    clients). A reader thread keeps every text message with its arrival
+    time, so results pushed while audio is still being sent are seen."""
+
+    def __init__(self, port: int, path: str, timeout: float = 600.0):
+        import base64
+        import socket
+        import threading
+
+        self.sock = socket.create_connection(("127.0.0.1", port), timeout)
+        key = base64.b64encode(os.urandom(16)).decode()
+        self.sock.sendall(
+            (f"GET {path} HTTP/1.1\r\nHost: 127.0.0.1:{port}\r\nUpgrade: websocket\r\n"
+             f"Connection: Upgrade\r\nSec-WebSocket-Key: {key}\r\nSec-WebSocket-Version: 13\r\n\r\n").encode()
+        )
+        self.buf = b""
+        while b"\r\n\r\n" not in self.buf:
+            chunk = self.sock.recv(4096)
+            assert chunk, "connection closed during the handshake"
+            self.buf += chunk
+        head, _, self.buf = self.buf.partition(b"\r\n\r\n")
+        status = int(head.split(b" ", 2)[1])
+        assert status == 101, head
+        self.messages = []  # (monotonic time, message)
+        self.closed = threading.Event()
+        self.error = None
+        self.reader = threading.Thread(target=self._read, daemon=True)
+        self.reader.start()
+
+    def _exact(self, n: int) -> bytes:
+        while len(self.buf) < n:
+            chunk = self.sock.recv(65536)
+            if not chunk:
+                raise ConnectionError("server closed the socket")
+            self.buf += chunk
+        out, self.buf = self.buf[:n], self.buf[n:]
+        return out
+
+    def _read(self):
+        import struct
+
+        try:
+            while True:
+                b1, b2 = self._exact(2)
+                op, n = b1 & 0x0F, b2 & 0x7F
+                if n == 126:
+                    (n,) = struct.unpack(">H", self._exact(2))
+                elif n == 127:
+                    (n,) = struct.unpack(">Q", self._exact(8))
+                payload = self._exact(n)
+                if op == 0x8:
+                    return
+                if op == 0x1:
+                    self.messages.append((time.monotonic(), json.loads(payload)))
+        except Exception as e:  # kept and raised by the caller
+            self.error = e
+        finally:
+            self.closed.set()
+
+    def send(self, opcode: int, payload: bytes) -> None:
+        import struct
+
+        header = bytearray([0x80 | opcode])
+        n = len(payload)
+        if n < 126:
+            header.append(0x80 | n)
+        elif n < 1 << 16:
+            header += bytes([0x80 | 126]) + struct.pack(">H", n)
+        else:
+            header += bytes([0x80 | 127]) + struct.pack(">Q", n)
+        mask = os.urandom(4)
+        import numpy as np
+
+        data = np.frombuffer(payload, np.uint8) ^ np.frombuffer((mask * (n // 4 + 1))[:n], np.uint8)
+        self.sock.sendall(bytes(header) + mask + data.tobytes())
+
+
+def phase_serving(pipe) -> None:
+    """Phase 11: the HTTP and WebSocket server over the main path's
+    large-v3 bf16 model (its weights shared, not reloaded), one temperature
+    (``serve --temperature_increment_on_fallback 0``)."""
+    import threading
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from whisperx_tpu_torch.asr import TranscriptionPipeline
+    from whisperx_tpu_torch.ops.flash_attention import flash_attention
+    from whisperx_tpu_torch.serve import BatchConfig, TranscriptionServer
+    from whisperx_tpu_torch.utils.metrics import GLOBAL_TRACKER
+
+    t_phase = time.perf_counter()
+    m, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    flags = lambda: (m.allow_tf32, m.allow_bf16_reduced_precision_reduction, cudnn.allow_tf32)  # noqa: E731
+    flags_before = flags()
+    serve_pipe = TranscriptionPipeline(
+        model=pipe.model, vad_model=pipe.vad_model, asr_options={"temperatures": (0.0,)},
+        language="en", batch_size=8,
+    )
+    assert serve_pipe.model is pipe.model
+    n_layer = pipe.model.dims.n_audio_layer
+    server = TranscriptionServer(
+        serve_pipe, model_name="large-v3", batch_config=BatchConfig(max_batch_size=3, max_wait_ms=500),
+    )
+    port = server.start_background(port=0)
+    base = f"http://127.0.0.1:{port}"
+    try:
+        # (a) liveness
+        status, _, body = http(base + "/healthz")
+        assert status == 200 and json.loads(body)["status"] == "ok", body
+        print(f"[serve] TranscriptionServer(large-v3 bf16, max_batch_size 3, max_wait_ms 500) on port {port}: /healthz 200")
+
+        # (b) three concurrent requests of the (20, 30] s bucket: one batch
+        a21 = synth_speech(SERVE_AUDIO_S[0], seed=7)
+        a25_44k = synth_speech(SERVE_AUDIO_S[1], sr=44100, seed=8)
+        a29 = synth_speech(SERVE_AUDIO_S[2], seed=9)
+        body29, ctype29 = multipart({"file": wav_bytes(a29), "model": "whisper-1", "response_format": "verbose_json"})
+        url = base + "/v1/audio/transcriptions"
+        requests = [
+            ("wav 21 s", url, wav_bytes(a21), {"Content-Type": "audio/wav"}),
+            ("pcm i16 44.1 kHz 25 s", url, (a25_44k * 32767).astype(np.int16).tobytes(),
+             {"Content-Type": "audio/x-raw-pcm", "X-Format": "i16", "X-Sample-Rate": "44100"}),
+            ("multipart verbose_json 29 s", url, body29, {"Content-Type": ctype29}),
+        ]
+        answers, errors = {}, []
+
+        def client(label, u, b, h):
+            t0 = time.perf_counter()
+            try:
+                answers[label] = (*http(u, b, h), time.perf_counter() - t0)
+            except Exception as e:  # raised below
+                errors.append((label, e))
+
+        # the handler resamples the 44.1 kHz body with scipy: import it now,
+        # so that its first import does not outlast the straggler window
+        from whisperx_tpu_torch.audio.io import _resample
+
+        _resample(np.zeros(441, np.float32), 44100, 16000)
+        GLOBAL_TRACKER.reset()
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention.launches = 0
+        threads = [threading.Thread(target=client, args=r) for r in requests]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        wall = time.perf_counter() - t0
+        k1 = flash_attention.launches
+        assert not errors, errors
+        passes = GLOBAL_TRACKER.report()["decode"]["calls"]
+        stats = server.batcher.stats_snapshot()
+        for (label, *_), audio_s in zip(requests, SERVE_AUDIO_S):
+            status, ctype, body, _ = answers[label]
+            assert status == 200 and ctype.startswith("application/json"), (label, status, ctype)
+            payload = json.loads(body)
+            assert payload["segments"], (label, payload)
+            for seg in payload["segments"]:
+                assert 0.0 <= seg["start"] < seg["end"] <= audio_s + 1e-6, (label, seg)
+        assert stats["requests"] == 3 and stats["batches"] == 1 and stats["errors"] == 0, stats
+        assert k1 == n_layer * passes > 0, (k1, passes)
+        _, _, metrics = http(base + "/metrics")
+        walls = {label: json.loads(answers[label][2]).get("wall_s") for label, *_ in requests}
+        print(
+            f"[serve] 3 concurrent POSTs ({'/'.join(f'{s:.0f}' for s in SERVE_AUDIO_S)} s: WAV, raw PCM i16 at "
+            f"44.1 kHz, multipart verbose_json): all 200, {stats['requests']} requests in "
+            f"{stats['batches']} batch; client wall {wall:.3f} s, per request "
+            f"{[round(answers[label][3], 3) for label, *_ in requests]} s; server wall_s {walls}; "
+            f"batch wall {stats['total_wall_s']:.3f} s; throughput_rtf {server.batcher.throughput_rtf:.2f}x; "
+            f"encoder passes {passes}, K1 launches {k1} (= {n_layer} x {passes}); /metrics "
+            f"{len(metrics.decode().splitlines())} lines; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (random weights: every decode runs "
+            f"its 224 steps, a worst case)"
+        )
+
+        # (c) align and diarize over HTTP (phase 4c's aligner checkpoint)
+        audio = synth_speech(SERVE_ALIGN_S, seed=10)
+        t0 = time.perf_counter()
+        status, _, body = http(url + "?align=true&diarize=true", wav_bytes(audio), {"Content-Type": "audio/wav"})
+        align_wall = time.perf_counter() - t0
+        payload = json.loads(body)
+        assert status == 200 and payload["segments"] and payload["word_segments"], payload
+        assert server._aligners["en"][1]["random_weights"] is False
+        assert server._diarizer.device.type == "cuda"
+        for seg in payload["segments"]:
+            assert str(seg.get("speaker", "")).startswith("SPEAKER_"), seg
+            for w in seg["words"]:
+                if "start" in w:
+                    assert seg["start"] <= w["start"] <= w["end"] <= seg["end"] + ALIGN_END_SLACK_S, (seg, w)
+        n_words = sum(len(s["words"]) for s in payload["segments"])
+        print(
+            f"[serve] POST ?align=true&diarize=true of {SERVE_ALIGN_S:.0f} s: 200 in {align_wall:.3f} s "
+            f"(server wall_s {payload['wall_s']}); {len(payload['segments'])} segments, each with a speaker "
+            f"({sorted({s['speaker'] for s in payload['segments']})}), {n_words} words inside their segments"
+        )
+
+        # (d) two WebSocket sessions, one after the other, each paced at
+        # real time in 0.5 s binary frames: one with partials, one
+        # diarized online. Random weights decode every token of the budget
+        # (8-12 s a decode on this model), longer than the 5 s latency cap,
+        # so after a session's first flush every tick is forced: a session
+        # yields at most one partial (the first, before any flush). (Run at
+        # once, the two sessions' decode loops slowed each other so far
+        # that a partial outlasted a 16 s stream.)
+        sessions = {
+            "partials": ("/v1/ws?format=i16&partial_interval=2",
+                         synth_speech(SERVE_STREAM_S["partials"], seed=11)),
+            "diarize": ("/v1/ws?format=i16&diarize=true", synth_speech(SERVE_STREAM_S["diarize"], seed=12)),
+        }
+        GLOBAL_TRACKER.reset()
+        flash_attention.launches = 0
+        summary = {}
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for name, (path, audio) in sessions.items():
+                pcm = (audio * 32767).astype(np.int16)
+                ws = WSClient(port, path)
+                t0 = time.monotonic()
+                for n, i in enumerate(range(0, len(pcm), 8000)):
+                    ws.send(0x2, pcm[i:i + 8000].tobytes())
+                    time.sleep(max(0.0, t0 + 0.5 * (n + 1) - time.monotonic()))
+                ws.send(0x1, json.dumps({"op": "end"}).encode())
+                assert ws.closed.wait(600), f"{name}: the session did not close"
+                ws.sock.close()
+                assert ws.error is None, ws.error
+                results = [(t - t0, msg) for t, msg in ws.messages if msg["op"] == "result"]
+                ends = [msg for _, msg in ws.messages if msg["op"] == "end"]
+                assert len(ends) == 1 and ends[0]["result_count"] == len(results), (name, ends, len(results))
+                partials = [(t, r) for t, r in results if r["provisional"]]
+                finals = [(t, r) for t, r in results if not r["provisional"]]
+                summary[name] = (partials, finals)
+                lat = np.array([r["latency_s"] for _, r in finals])
+                print(
+                    f"[serve] WebSocket session '{name}' of {SERVE_STREAM_S[name]:.0f} s (i16 frames of 0.5 s at real "
+                    f"time): {len(partials)} partials at {[round(t, 3) for t, _ in partials]} s, {len(finals)} "
+                    f"finals at {[round(t, 3) for t, _ in finals]} s covering "
+                    f"{[(r['start'], r['end']) for _, r in finals]} s, "
+                    f"{sum(r['prompted'] for _, r in finals)} prompted; finals' latency_s p50 "
+                    f"{np.percentile(lat, 50):.3f} s, p95 {np.percentile(lat, 95):.3f} s; server latency_stats "
+                    f"{ends[0]['latency']}"
+                    + (f"; speakers {[[seg.get('speaker') for seg in r['segments']] for _, r in finals]}"
+                       if name == "diarize" else "")
+                )
+        # a chunk whose diarization failed only warns in the server: here
+        # that is a failure, as is a final without a speaker
+        failed = [str(w.message) for w in caught if "diarization failed" in str(w.message)]
+        assert not failed, failed
+        k1 = flash_attention.launches
+        passes = GLOBAL_TRACKER.report().get("decode", {"calls": 0})["calls"]
+        for name, (partials, finals) in summary.items():
+            bounds = [(r["start"], r["end"]) for _, r in finals]
+            assert bounds and bounds[0][0] == 0.0, (name, bounds)
+            assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:])), (name, bounds)
+            assert abs(bounds[-1][1] - SERVE_STREAM_S[name]) < 1e-6, (name, bounds)
+        partials, finals = summary["partials"]
+        assert partials and partials[0][0] < finals[0][0], [(t, r["provisional"]) for t, r in partials + finals]
+        _, dfinals = summary["diarize"]
+        # the synthetic speech pauses from 2.87 s: the first chunk ends on
+        # that silence, before the 5 s cap could force it; then a flush by
+        # the cap and the tail
+        assert dfinals[0][1]["end"] <= 4.0, dfinals[0][1]
+        assert len(dfinals) >= 3, [(round(t, 3), r["start"], r["end"]) for t, r in dfinals]
+        labelled = [r for _, r in dfinals if r["segments"]]
+        assert labelled and all(
+            str(seg.get("speaker", "")).startswith("SPEAKER_") for r in labelled for seg in r["segments"]
+        ), [[seg.get("speaker") for seg in r["segments"]] for _, r in dfinals]
+        n_partials = sum(len(p) for p, _ in summary.values())
+        assert k1 == n_layer * (passes + n_partials) > 0, (k1, passes, n_partials)
+        print(
+            f"[serve] K1 launches over both sessions {k1} (= {n_layer} x ({passes} final decodes + "
+            f"{n_partials} partial decodes)); worst case: random weights decode every token of the budget"
+        )
+
+        # repeated partials of one utterance at full width: the second,
+        # of the same audio, agrees with the first, so the third replays
+        # the committed tokens as its decode prefix
+        from whisperx_tpu_torch.serve.streaming import IncrementalUtteranceDecoder
+
+        utterance = synth_speech(4.0, seed=13)
+        dec = IncrementalUtteranceDecoder(pipe.model, language="en", token_budget=64)
+        flash_attention.launches = 0
+        t0 = time.perf_counter()
+        infos = [dec.partial(utterance[: int(e * 16000)]) for e in (3.0, 3.0, 4.0)]
+        inc_wall = time.perf_counter() - t0
+        prev = []
+        for info in infos:
+            stable = info["stable_tokens"]
+            assert stable == info["tokens"][: len(stable)] and stable[: len(prev)] == prev, infos
+            prev = stable
+        assert infos[2]["replayed"] >= IncrementalUtteranceDecoder.PREFIX_BUCKET, infos[2]
+        assert flash_attention.launches == n_layer * len(infos), flash_attention.launches
+        print(
+            f"[serve] IncrementalUtteranceDecoder (budget 64) over 3/3/4 s of one utterance: "
+            f"{[len(i['stable_tokens']) for i in infos]} committed tokens, replayed "
+            f"{[i['replayed'] for i in infos]}, generated {[i['generated'] for i in infos]}; "
+            f"{inc_wall:.3f} s for the three; K1 launches {flash_attention.launches} (= {n_layer} x 3)"
+        )
+
+        # the entry point's --warmup_streaming on this model, at a 0 s cap
+        # (every tick flushes) and a partial budget of 64: the 1 s chunk
+        # bucket, one chunk decoded with a PROMPT_TOKENS prompt (random
+        # weights' text is too short for a stream to reach one), a first
+        # partial and one replayed prefix bucket
+        from whisperx_tpu_torch.serve import warmup_streaming
+
+        GLOBAL_TRACKER.reset()
+        flash_attention.launches = 0
+        t0 = time.perf_counter()
+        calls = warmup_streaming(serve_pipe, max_latency_seconds=0.0, partial_token_budget=64, language="en")
+        warm_wall = time.perf_counter() - t0
+        passes = GLOBAL_TRACKER.report().get("decode", {"calls": 0})["calls"]
+        assert calls == 4, calls
+        assert flash_attention.launches == n_layer * (passes + 2) and passes >= 2, (flash_attention.launches, passes)
+        print(
+            f"[serve] warmup_streaming(max_latency_seconds=0, partial_token_budget=64): {calls} calls "
+            f"(1 chunk bucket, 1 prompted, 2 partials) in {warm_wall:.3f} s; K1 launches "
+            f"{flash_attention.launches} (= {n_layer} x ({passes} chunk decodes + 2 partial decodes))"
+        )
+    finally:
+        server.shutdown()
+    # (e) the precision flags are the caller's again
+    assert flags() == flags_before, (flags(), flags_before)
+    print(f"[serve] precision flags after the phase as before it: {flags_before}; phase wall "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_small_serving(models: dict) -> None:
+    """Phase 7's serving checks: the f32 test-nano server over the CUDA
+    pipeline and over the CPU pipeline (the same weights) gives the same
+    body for one WAV POST and the same finals for one long-poll stream;
+    then ``python -m whisperx_tpu_torch.serve --device cuda`` as a
+    subprocess answers /healthz and one POST, and exits 0 on SIGTERM."""
+    import dataclasses
+    import signal
+    import urllib.error
+
+    import numpy as np
+
+    from whisperx_tpu_torch.asr import TranscriptionPipeline
+    from whisperx_tpu_torch.convert.checkpoint import save_checkpoint
+    from whisperx_tpu_torch.serve import BatchConfig, TranscriptionServer
+    from whisperx_tpu_torch.vad import EnergyVAD
+
+    clip = synth_speech(12.0, seed=12)
+    gap = np.zeros(16000, np.float32)
+    stream = np.concatenate([synth_speech(3.0, seed=13), gap, synth_speech(2.5, seed=14), gap])
+    pcm = {"Content-Type": "audio/x-raw-pcm", "X-Format": "f32"}
+    got = {}
+    for dev, model in models.items():
+        server = TranscriptionServer(
+            TranscriptionPipeline(model=model, vad_model=EnergyVAD(), asr_options={"temperatures": (0.0,)}),
+            model_name="test-nano", batch_config=BatchConfig(max_wait_ms=5),
+        )
+        base = f"http://127.0.0.1:{server.start_background(port=0)}"
+        try:
+            _, _, body = http(base + "/v1/audio/transcriptions?language=en", wav_bytes(clip), {"Content-Type": "audio/wav"})
+            post = json.loads(body)
+            post.pop("request_id"), post.pop("wall_s")
+            sid = json.loads(http(base + "/v1/stream/start?language=en", b"")[2])["stream_id"]
+            for i in range(0, len(stream), 8000):
+                http(base + f"/v1/stream/{sid}/audio", stream[i:i + 8000].tobytes(), pcm)
+            end = json.loads(http(base + f"/v1/stream/{sid}/end", b"")[2])
+            finals = [{k: v for k, v in r.items() if k != "latency_s"} for r in end["all_results"]]
+            got[dev] = (post, finals)
+        finally:
+            server.shutdown()
+    assert got["cuda"] == got["cpu"], got
+    assert got["cuda"][0]["segments"] and got["cuda"][1], got["cuda"]
+    print(
+        f"[small] test-nano f32 server: the same POST body ({len(got['cuda'][0]['segments'])} segments) "
+        f"and the same {len(got['cuda'][1])} stream finals on cuda and cpu"
+    )
+
+    with tempfile.TemporaryDirectory() as root:
+        ckpt = os.path.join(root, "nano")
+        model = models["cpu"]
+        save_checkpoint(ckpt, model, {"name": "test-nano", "family": "whisper",
+                                      "dims": dataclasses.asdict(model.dims)})
+        port = free_port()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "whisperx_tpu_torch.serve", "--model", ckpt, "--device", "cuda",
+             "--port", str(port), "--no_warmup", "--temperature_increment_on_fallback", "0"],
+            cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            env={**os.environ, "PYTHONPATH": REPO},
+        )
+        try:
+            t0 = time.perf_counter()
+            while True:
+                try:
+                    status, _, body = http(f"http://127.0.0.1:{port}/healthz", timeout=5)
+                    break
+                except (urllib.error.URLError, ConnectionError):
+                    assert proc.poll() is None, proc.stdout.read().decode()
+                    assert time.perf_counter() - t0 < 180, "serve did not come up in 180 s"
+                    time.sleep(0.5)
+            up = time.perf_counter() - t0
+            assert status == 200 and json.loads(body)["status"] == "ok", body
+            status, _, body = http(
+                f"http://127.0.0.1:{port}/v1/audio/transcriptions?language=en", wav_bytes(clip),
+                {"Content-Type": "audio/wav"},
+            )
+            assert status == 200 and json.loads(body)["language"] == "en", body
+            t1 = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=10)
+            down = time.perf_counter() - t1
+            said = proc.stdout.read().decode()
+            assert rc == 0, (rc, said)
+            assert "serving" in said and "on cuda" in said, said
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    print(
+        f"[small] python -m whisperx_tpu_torch.serve --device cuda (test-nano checkpoint): /healthz 200 "
+        f"after {up:.1f} s, one POST 200, exit 0 {down:.2f} s after SIGTERM"
+    )
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "whisperx_tpu_torch")):
         print("chip_smoke: whisperx_tpu_torch/ not found beside this script", file=sys.stderr)
@@ -2325,6 +2836,7 @@ def main() -> int:
             phase_decode_profile(pipe.model, "profile cross-decode", k3=k3)
         phase_transcribe_many(pipe, k3)
         phase_speculative(pipe)
+        phase_serving(pipe)
         del pipe
         torch.cuda.empty_cache()
         phase_sequential()

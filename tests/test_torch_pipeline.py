@@ -87,8 +87,8 @@ def test_fallback_temperatures_rerun_failing_chunks(nano_ckpt, speech35):
 def test_port_runs_without_jax(nano_ckpt):
     """A fresh interpreter imports the port (its CLI, orchestrator, backends,
     seek loop, kernels' modules, quantization, alignment, word timing and
-    the native audio library, speculative decoding, every VAD, diarization
-    and the unified pipeline too), transcribes with word timestamps, with a
+    the native audio library, speculative decoding, every VAD, diarization,
+    the unified pipeline and the serving layer too), transcribes with word timestamps, with a
     VAD and without, with a ``self:1`` draft behind the pyannote VAD, runs
     the Silero network through the batch processor, aligns (random weights,
     allowed by the suite's ``WHISPERX_TPU_ALLOW_RANDOM_ALIGN``), diarizes on
@@ -123,6 +123,8 @@ def test_port_runs_without_jax(nano_ckpt):
         import whisperx_tpu_torch.pipeline.batch_processor
         import whisperx_tpu_torch.utils.metrics
         import whisperx_tpu_torch.utils.wer
+        import whisperx_tpu_torch.serve
+        import whisperx_tpu_torch.serve.__main__
         # no module of the port imports pandas (alignment's optional nltk
         # may, when it runs)
         assert not [m for m in sys.modules if m == "pandas" or m.startswith("pandas.")]

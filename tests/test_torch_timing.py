@@ -68,6 +68,14 @@ def models():
     tmodel = params_from_numpy(flatten_tree(params), DIMS, torch.float32, "cpu")
     assert tmodel.alignment_heads == [tuple(h) for h in jmodel.alignment_heads] == [(1, 0), (1, 1)]
     kw = dict(num_languages=DIMS.num_languages, language="en", task="transcribe")
+    # a tokenizer warns only when it is built, and both packages memoize
+    # them process-wide: build afresh, whatever an earlier module of this
+    # worker left cached
+    from whisperx_tpu.decoding import tokenizer as jtok
+    from whisperx_tpu_torch.decoding import tokenizer as ttok
+
+    jtok._cached_tokenizer.cache_clear()
+    ttok._cached_tokenizer.cache_clear()
     with pytest.warns(UserWarning, match="partial"):
         toks = (jget_tokenizer(True, **kw), tget_tokenizer(True, **kw))
     return jmodel, tmodel, toks

@@ -1,6 +1,17 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain PyTorch version."""
 
 import os
+import threading
+
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(fn, attr: str = "launches") -> None:
+    """Add one to ``fn.<attr>``, a kernel's launch count. Under a lock: the
+    wrappers run from several threads at once when serving, and a bare
+    ``+= 1`` there may lose an update."""
+    with _COUNT_LOCK:
+        setattr(fn, attr, getattr(fn, attr) + 1)
 
 
 def refuse_xla_route(switch: str, asked: bool, tensor) -> None:

@@ -5,7 +5,9 @@ into a shared library under ``_build/`` (listed in ``.gitignore``), loaded
 with ``ctypes``. The library's file name carries a hash of the source and
 the compiler flags, so an edited source is rebuilt and an unchanged one is
 built once per checkout. Nothing is built when a module is imported: the
-first ``load`` builds.
+first ``load`` builds. Threads that make the first ``load`` of a kernel
+together wait for a single build under one lock (one nvcc per source per
+process).
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
+import threading
 from typing import Dict
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -28,6 +32,7 @@ NVCC_FLAGS = (
 )
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -65,19 +70,31 @@ def build_log(name: str) -> str:
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, compiled first if needed."""
     lib = _loaded.get(name)
-    if lib is None:
-        out = library_path(name)
-        if not os.path.exists(out):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{out}.{os.getpid()}.tmp"
-            with open(f"{out}.log", "w") as log:
-                rc = subprocess.run(
-                    [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                     os.path.join(CSRC, f"{name}.cu")],
-                    stdout=log, stderr=subprocess.STDOUT,
-                ).returncode
-            if rc != 0:
-                raise RuntimeError(f"nvcc failed for {name}.cu:\n{build_log(name)}")
-            os.replace(tmp, out)  # atomic: a reader never sees half a file
-        lib = _loaded[name] = ctypes.CDLL(out)
+    if lib is not None:
+        return lib
+    with _lock:  # the check, the build and the load, once per source
+        lib = _loaded.get(name)
+        if lib is None:
+            out = library_path(name)
+            if not os.path.exists(out):
+                os.makedirs(BUILD_DIR, exist_ok=True)
+                # unique per build: another process may build the same source
+                fd, tmp = tempfile.mkstemp(prefix=f"{name}-", suffix=".tmp", dir=BUILD_DIR)
+                os.close(fd)
+                try:
+                    with open(f"{tmp}.log", "w") as log:
+                        rc = subprocess.run(
+                            [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+                             os.path.join(CSRC, f"{name}.cu")],
+                            stdout=log, stderr=subprocess.STDOUT,
+                        ).returncode
+                    os.replace(f"{tmp}.log", f"{out}.log")
+                    if rc != 0:
+                        raise RuntimeError(f"nvcc failed for {name}.cu:\n{build_log(name)}")
+                    os.replace(tmp, out)  # atomic: a reader never sees half a file
+                finally:
+                    for path in (tmp, f"{tmp}.log"):
+                        if os.path.exists(path):
+                            os.remove(path)
+            lib = _loaded[name] = ctypes.CDLL(out)
     return lib

@@ -36,6 +36,7 @@ from typing import Optional
 
 import torch
 
+from whisperx_tpu_torch.ops import count_launch
 from whisperx_tpu_torch.utils.precision import reference_matmul
 
 TILE = 512  # the TPU kernels' T tile (``bt``); the CUDA kernel walks the same
@@ -217,7 +218,7 @@ def cross_decode(qs, k8, v8, bt: int = TILE) -> torch.Tensor:
         return _cross_decode_reference(qs, k8, v8, bt=bt)
     b, h, d = qs.shape
     out = _launch(qs, k8, v8, n_head=h, q_strides=(h * d, d), bt=bt)
-    cross_attention_decode.launches += 1
+    count_launch(cross_attention_decode)
     return out
 
 
@@ -227,7 +228,7 @@ def cross_decode_kt(qs, kt8, v8, bt: int = TILE) -> torch.Tensor:
         return _cross_decode_reference(qs, kt8, v8, k_transposed=True, bt=bt)
     b, h, d = qs.shape
     out = _launch(qs, kt8, v8, n_head=h, q_strides=(h * d, d), k_transposed=True, bt=bt)
-    cross_decode_kt.launches += 1
+    count_launch(cross_decode_kt)
     return out
 
 
@@ -238,7 +239,7 @@ def cross_decode_i8(qs8, sq, k8, v8, bt: int = TILE) -> torch.Tensor:
         return _cross_decode_reference(qs8, k8, v8, sq=sq, bt=bt)
     b, h, d = qs8.shape
     out = _launch(qs8, k8, v8, n_head=h, q_strides=(h * d, d), sq=sq, bt=bt)
-    cross_decode_i8.launches += 1
+    count_launch(cross_decode_i8)
     return out
 
 
@@ -273,7 +274,7 @@ def cross_attention_decode(
             q_pack.contiguous(), k8.reshape(b, t, d), v8.reshape(b, t, d),
             n_head=h, q_strides=(d, 0),
         )
-        cross_attention_decode.launches += 1
+        count_launch(cross_attention_decode)
     return out.reshape(b, 1, h, dh)
 
 

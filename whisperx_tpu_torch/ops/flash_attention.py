@@ -33,6 +33,8 @@ import math
 
 import torch
 
+from whisperx_tpu_torch.ops import count_launch
+
 LOG2_E = math.log2(math.e)
 WHOLEK_MAX_KEYS = 2048  # the JAX dispatch: longer key axes take K2
 K2_BLOCK_KEYS = 1536  # the key tile ``flash_attention`` gives K2 in JAX
@@ -187,10 +189,10 @@ def wholek_attention(
         return _attention_reference(q, k, v, skip_max=skip_max, mxu_sum=mxu_sum)
     if mxu_sum:
         out = _launch(q, k, v, _K1B)
-        wholek_attention.mxu_sum_launches += 1
+        count_launch(wholek_attention, "mxu_sum_launches")
     else:
         out = _launch(q, k, v, _K1_SKIP_MAX if skip_max else _K1)
-        flash_attention.launches += 1
+        count_launch(flash_attention)
     return out
 
 
@@ -206,7 +208,7 @@ def flash_attention_tiled(
     if q.device.type == "cpu":
         return _flash_reference(q, k, v, causal=causal, bk=bk)
     out = _launch(q, k, v, _K2_CAUSAL if causal else _K2)
-    flash_attention_tiled.launches += 1
+    count_launch(flash_attention_tiled)
     return out
 
 

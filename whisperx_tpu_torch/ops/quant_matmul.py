@@ -30,7 +30,7 @@ import os
 
 import torch
 
-from whisperx_tpu_torch.ops import refuse_xla_route
+from whisperx_tpu_torch.ops import count_launch, refuse_xla_route
 from whisperx_tpu_torch.utils.precision import reference_matmul
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -128,13 +128,9 @@ def _kernel_library() -> ctypes.CDLL:
     return lib
 
 
-def int8_matmul(
+def _launch(
     x: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor, group_size: int
 ) -> torch.Tensor:
-    """x [M, K] @ int8 qw [K, N] with group scales → [M, N] in x's dtype.
-    CUDA tensors launch K4; CPU tensors take the plain version."""
-    if x.device.type == "cpu":
-        return _quant_matmul_reference(x, qw, scale, group_size)
     _check_operands(x, qw, scale, group_size)
     lib = _kernel_library()
     m, k = x.shape
@@ -156,7 +152,18 @@ def int8_matmul(
         )
     if err != 0:
         raise RuntimeError(f"int8_matmul launch failed: cudaError {err}")
-    quant_matmul.launches += 1
+    return out
+
+
+def int8_matmul(
+    x: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor, group_size: int
+) -> torch.Tensor:
+    """x [M, K] @ int8 qw [K, N] with group scales → [M, N] in x's dtype.
+    CUDA tensors launch K4; CPU tensors take the plain version."""
+    if x.device.type == "cpu":
+        return _quant_matmul_reference(x, qw, scale, group_size)
+    out = _launch(x, qw, scale, group_size)
+    count_launch(quant_matmul)
     return out
 
 
