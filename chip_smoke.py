@@ -22,7 +22,7 @@ Phases, each of which passes or raises (the script then exits non-zero):
      speech; the kernel launch counts are reset just before and read just
      after, and every kernel of the path must have launched;
   5. decode profile: the main path's model decodes one batch of 8 chunks
-     greedily for 48 steps, timed on the host clock over 5 runs, then once
+     greedily for 48 steps, timed on the host clock over 3 runs, then once
      under ``torch.profiler`` (device busy share, kernels by device time);
      then the same with the cross-decode opt-in
      (``WHISPERX_TPU_CROSS_DECODE=1``): K3 must launch once per decoder
@@ -117,6 +117,30 @@ Phases, each of which passes or raises (the script then exits non-zero):
      turns; (c) ``assign_word_speakers`` over phase 4's transcript with
      (a)'s turns on phase 4's 120 s; (d) the ResNet34 alone on 240 windows
      of 2 s: device time beside its operation count;
+  12. conversion (after 10): the port's own converter on sources at the
+     published widths, random weights from fixed seeds, no download. An HF
+     ``WhisperForConditionalGeneration`` directory of large-v3 (config of
+     openai/whisper-large-v3; F16 ``model.safetensors`` written by
+     ``write_safetensors``; seeded alignment heads; a synthetic vocabulary
+     of 50257 ranked tokens) goes through ``python -m
+     whisperx_tpu_torch.convert whisper --quantize int8`` as a subprocess,
+     wav2vec2 base (an HF ``Wav2Vec2ForCTC`` directory), PyanNet and the
+     ResNet34 (pyannote's and wespeaker's state dicts) beside it. On the
+     host: every converted tensor equals its F16 source after the
+     converter's transposes, to the bit; the alignment heads and
+     ``vocab.tiktoken`` carried. On the card: the checkpoint transcribes 30
+     s (24 tokens a row, one temperature) with K1 32 × the encoder passes and
+     the converted alignment heads, then again under ``profiler_trace``,
+     whose Chrome trace must hold one K1 kernel event per launch; the int8
+     copy transcribes with K4's launches per shape as
+     ``k4_launches_per_shape`` derives them (greedy), and decoder block 1's
+     int8 codes and scales equal ``quantize_weight`` on the CPU of the bf16
+     weights; the converted wav2vec2 aligns the segments through
+     ``WHISPERX_TPU_ALIGN_DIR``, the converted PyanNet and ResNet34 diarize
+     the 30 s through ``WHISPERX_TPU_SEGMENTATION_CKPT`` /
+     ``WHISPERX_TPU_SPEAKER_CKPT``; conversion, load and transcription
+     times beside the card's name and power limit. Silero's routes need
+     ``onnx`` or the network: not run here;
   7. small model: f32 ``test-nano`` through the same pipeline on CUDA and on
      the CPU with the same weights; segments and greedy tokens must match,
      and the seek loop's segments and tokens too, and the words of word
@@ -154,6 +178,7 @@ import json
 import math
 import os
 import re
+import struct
 import subprocess
 import sys
 import tempfile
@@ -171,7 +196,7 @@ KERNEL_SOURCES = ("flash_attention", "quant_matmul", "cross_attention_decode")
 CROSS_DECODE_FLAG = "WHISPERX_TPU_CROSS_DECODE"
 
 MAIN_AUDIO_S = 120.0
-PROFILE_BATCH, PROFILE_STEPS, PROFILE_RUNS = 8, 48, 5
+PROFILE_BATCH, PROFILE_STEPS, PROFILE_RUNS = 8, 48, 3
 CLI_AUDIO_S = 60.0
 MANY_AUDIO_S = (20.0, 33.0, 47.0)  # transcribe_many's three requests
 SEQ_AUDIO_S = 40.0  # the seek loop: two windows
@@ -211,6 +236,17 @@ RESNET_WINDOWS = 240  # phase 10(d): 2 s windows, as the pipeline cuts them
 SERVE_AUDIO_S = (21.0, 25.0, 29.0)
 SERVE_ALIGN_S = 12.0
 SERVE_STREAM_S = {"partials": 8.0, "diarize": 20.0}
+# phase 12: the converted checkpoints transcribe 30 s (one window) for 24
+# tokens a row: every kernel launch and shape of the path, and a profiler
+# trace small enough to read back (~1.1 M events, 315 MB at 48 tokens)
+CONVERT_AUDIO_S = 30.0
+CONVERT_SAMPLE_LEN = 24
+# openai/whisper-large-v3's published config.json (the HF source's widths)
+LARGE_V3_HF = {
+    "d_model": 1280, "encoder_layers": 32, "decoder_layers": 32,
+    "encoder_attention_heads": 20, "decoder_attention_heads": 20, "num_mel_bins": 128,
+    "vocab_size": 51866, "max_source_positions": 1500, "max_target_positions": 448,
+}
 
 
 def synth_speech(duration_s: float, sr: int = 16000, seed: int = 0):
@@ -1084,6 +1120,28 @@ def phase_alignment(segments) -> None:
     torch.cuda.empty_cache()
 
 
+DEVICE_TRACE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def device_events(prof) -> list:
+    """The device's kernels, copies and fills in a finished ``torch.profiler``
+    block, summed by name: ``[(name, ms, calls)]``, the largest first. They
+    are read from the Chrome trace the profiler writes in C++:
+    ``key_averages()`` builds a Python object for each of a batched decode's
+    ~10^6 host and device events, which takes minutes."""
+    with tempfile.TemporaryDirectory() as root:
+        path = os.path.join(root, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)["traceEvents"]
+    totals = {}
+    for e in trace:
+        if e.get("cat") in DEVICE_TRACE_CATS:
+            ms, n = totals.get(e["name"], (0.0, 0))
+            totals[e["name"]] = (ms + e["dur"] / 1e3, n + 1)
+    return sorted(((name, ms, n) for name, (ms, n) in totals.items()), key=lambda e: -e[1])
+
+
 def phase_decode_profile(model, tag: str = "profile", beam_size=None, k3=None) -> None:
     """Where one batched decode spends its time: PROFILE_BATCH 30 s mels of
     the pipeline's warm-up signal, decoded for PROFILE_STEPS tokens (encoder
@@ -1133,33 +1191,30 @@ def phase_decode_profile(model, tag: str = "profile", beam_size=None, k3=None) -
         t0 = time.perf_counter()
         run()
         wall = time.perf_counter() - t0
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-    device_s = sum(e.self_device_time_total for e in events) / 1e6
+    events = device_events(prof)
+    assert events, f"[{tag}] the profiler recorded no device activity"
+    device_s = sum(ms for _, ms, _ in events) / 1e3
     print(
         f"[{tag}] one decode under the profiler: wall {wall:.4f} s, CUDA "
         f"kernels {device_s:.4f} s, device busy {device_s / wall:.1%}"
     )
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
-        print(
-            f"[{tag}] {e.self_device_time_total / 1e3:10.3f} ms "
-            f"{e.count:7d} calls  {e.key[:90]}"
-        )
-    k4_events = [e for e in events if "int8_matmul" in e.key or "splitk_reduce" in e.key]
+    for name, ms, n in events[:10]:
+        print(f"[{tag}] {ms:10.3f} ms {n:7d} calls  {name[:90]}")
+    k4_events = [e for e in events if "int8_matmul" in e[0] or "splitk_reduce" in e[0]]
     if k4_events:  # K4: its kernels (a split-K call launches two), by name
-        k4_ms = sum(e.self_device_time_total for e in k4_events) / 1e3
-        k4_calls = sum(e.count for e in k4_events if "reduce" not in e.key)
+        k4_ms = sum(ms for _, ms, _ in k4_events)
+        k4_calls = sum(n for name, _, n in k4_events if "reduce" not in name)
         print(
             f"[{tag}] K4 device time per decode {k4_ms:.3f} ms over {k4_calls} calls "
             f"({k4_ms / max(k4_calls, 1):.4f} ms a call, {k4_ms / device_s / 1e3:.1%} of the "
             f"kernel time): " + "; ".join(
-                f"{kernel_name(e.key)} {e.count} x {e.self_device_time_total / 1e3 / e.count:.4f} ms"
-                for e in sorted(k4_events, key=lambda e: -e.self_device_time_total)
+                f"{kernel_name(name)} {n} x {ms / n:.4f} ms" for name, ms, n in k4_events
             )
         )
     if k3 is not None:
-        k3_events = [e for e in events if "cross_decode_kernel" in e.key]
-        k3_ms = sum(e.self_device_time_total for e in k3_events) / 1e3
-        k3_calls = sum(e.count for e in k3_events)
+        k3_events = [e for e in events if "cross_decode_kernel" in e[0]]
+        k3_ms = sum(ms for _, ms, _ in k3_events)
+        k3_calls = sum(n for _, _, n in k3_events)
         print(
             f"[{tag}] K3 launched {model.dims.n_text_layer} x {steps} times per decode; "
             f"its device time {k3_ms:.3f} ms over {k3_calls} launches "
@@ -2317,6 +2372,502 @@ def phase_diarization(main_result) -> None:
     torch.cuda.empty_cache()
 
 
+def write_safetensors(path: str, tensors: dict) -> int:
+    """A ``model.safetensors`` of numpy arrays (the format's 8-byte header
+    length, its JSON header, the data in order); returns its size."""
+    import numpy as np
+
+    codes = {np.dtype(np.float16): "F16", np.dtype(np.float32): "F32"}
+    header, offset = {}, 0
+    for name, arr in tensors.items():
+        header[name] = {"dtype": codes[arr.dtype], "shape": list(arr.shape),
+                        "data_offsets": [offset, offset + arr.nbytes]}
+        offset += arr.nbytes
+    blob = json.dumps(header, separators=(",", ":")).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(blob)) + blob)
+        for arr in tensors.values():
+            np.ascontiguousarray(arr).tofile(f)
+    return 8 + len(blob) + offset
+
+
+def hf_whisper_name(key: str):
+    """The HF ``WhisperForConditionalGeneration`` name of a Whisper weight
+    in the JAX layout, and whether the converter transposes it (linear
+    [out, in] → [in, out], conv1d [O, I, W] → [W, I, O]: both a full
+    reversal of the axes)."""
+    parts, leaf = key.split("/"), key.rsplit("/", 1)[1]
+    side, kind = parts[0], parts[1]
+    if kind in ("pos_emb", "tok_emb"):
+        return f"model.{side}.{'embed_positions' if kind == 'pos_emb' else 'embed_tokens'}.weight", False
+    suffix = {"w": "weight", "g": "weight", "b": "bias"}[leaf]
+    if kind in ("conv1", "conv2"):
+        return f"model.{side}.{kind}.{suffix}", leaf == "w"
+    if kind in ("ln_post", "ln"):
+        return f"model.{side}.layer_norm.{suffix}", False
+    prefix, mod = f"model.{side}.layers.{parts[2]}", parts[3]
+    if mod in ("attn", "cross_attn"):
+        proj = {"query": "q_proj", "key": "k_proj", "value": "v_proj", "out": "out_proj"}[parts[4]]
+        name = f"{prefix}.{'self_attn' if mod == 'attn' else 'encoder_attn'}.{proj}"
+    else:
+        name = f"{prefix}." + {
+            "attn_ln": "self_attn_layer_norm", "cross_attn_ln": "encoder_attn_layer_norm",
+            "mlp1": "fc1", "mlp2": "fc2", "mlp_ln": "final_layer_norm",
+        }[mod]
+    return f"{name}.{suffix}", leaf == "w"
+
+
+def synthetic_vocab(n_ranked: int = 50257) -> dict:
+    """An HF ``vocab.json`` of ``n_ranked`` ranked tokens in GPT-2's byte
+    alphabet (the 256 bytes, then lowercase letter strings with and
+    without a leading space) and two special tokens: the multilingual
+    layout's size, so the tokenizer's special ids are large-v3's."""
+    bs = list(range(33, 127)) + list(range(161, 173)) + list(range(174, 256))
+    cs, n = bs[:], 0
+    for b in range(256):
+        if b not in bs:
+            bs.append(b)
+            cs.append(256 + n)
+            n += 1
+    tokens = [chr(c) for _, c in sorted(zip(bs, cs))]
+    space = tokens[32]
+    words = ("".join(w) for k in (2, 3, 4) for w in itertools.product("abcdefghijklmnopqrstuvwxyz", repeat=k))
+    for word in words:
+        tokens += [space + word, word]
+        if len(tokens) >= n_ranked:
+            break
+    vocab = {t: i for i, t in enumerate(tokens[:n_ranked])}
+    vocab.update({"<|endoftext|>": n_ranked, "<|startoftranscript|>": n_ranked + 1})
+    return vocab
+
+
+def make_hf_whisper(root: str, model, heads) -> tuple:
+    """``model`` (large-v3's width, random weights) as an HF
+    ``WhisperForConditionalGeneration`` directory: ``model.safetensors`` in
+    F16 (as published), ``config.json`` of its dims, ``generation_config.json``
+    with ``heads`` as the alignment heads, and a synthetic ``vocab.json`` +
+    ``merges.txt``. Returns the directory, its F16 tensors by HF name, each
+    JAX name's (HF name, whether the converter transposes it) and the
+    file's size."""
+    import torch
+
+    d = model.dims
+    config = {
+        "architectures": ["WhisperForConditionalGeneration"], "model_type": "whisper",
+        "d_model": d.n_audio_state, "encoder_layers": d.n_audio_layer, "decoder_layers": d.n_text_layer,
+        "encoder_attention_heads": d.n_audio_head, "decoder_attention_heads": d.n_text_head,
+        "num_mel_bins": d.n_mels, "vocab_size": d.n_vocab, "max_source_positions": d.n_audio_ctx,
+        "max_target_positions": d.n_text_ctx, "encoder_ffn_dim": 4 * d.n_audio_state,
+        "decoder_ffn_dim": 4 * d.n_text_state, "torch_dtype": "float16",
+    }
+    assert {k: config[k] for k in LARGE_V3_HF} == LARGE_V3_HF, config
+    src = os.path.join(root, "hf-large-v3")
+    os.makedirs(src)
+    tensors, expected = {}, {}
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            key = name.replace(".", "/")
+            hf, transposed = hf_whisper_name(key)
+            t = p.detach().to(torch.float16)
+            if transposed:  # every axis reversed, as the converter's .T
+                t = t.permute(*reversed(range(t.ndim)))
+            tensors[hf] = t.contiguous().cpu().numpy()
+            expected[key] = (hf, transposed)
+    size = write_safetensors(os.path.join(src, "model.safetensors"), tensors)
+    with open(os.path.join(src, "config.json"), "w") as f:
+        json.dump(config, f, indent=2)
+    with open(os.path.join(src, "generation_config.json"), "w") as f:
+        json.dump({"alignment_heads": [list(h) for h in heads]}, f)
+    with open(os.path.join(src, "vocab.json"), "w", encoding="utf-8") as f:
+        json.dump(synthetic_vocab(), f)
+    with open(os.path.join(src, "merges.txt"), "w") as f:
+        f.write("#version: 0.2\nĠ a\n")
+    return src, tensors, expected, size
+
+
+def make_hf_wav2vec2(root: str) -> str:
+    """wav2vec2 BASE_CONFIG with make_align_checkpoint's weights (seed 0) as
+    an HF ``Wav2Vec2ForCTC`` directory: F32 ``model.safetensors`` under HF's
+    names (a plain positional-conv weight), ``config.json`` and the
+    base-960h ``vocab.json``."""
+    import numpy as np
+    import torch
+
+    from whisperx_tpu_torch.alignment import DEFAULT_EN_VOCAB
+    from whisperx_tpu_torch.convert.checkpoint import flatten_tree
+    from whisperx_tpu_torch.models.wav2vec2 import BASE_CONFIG, init_params
+
+    model = init_params(BASE_CONFIG, torch.Generator(device="cuda").manual_seed(0))
+    leaf = {"w": "weight", "g": "weight", "b": "bias"}
+    names = {"attn_ln": "layer_norm", "mlp1": "feed_forward.intermediate_dense",
+             "mlp2": "feed_forward.output_dense", "mlp_ln": "final_layer_norm"}
+    tensors = {}
+    for key, arr in flatten_tree(model).items():
+        parts = key.split("/")
+        if parts[0] == "feature_extractor":
+            name = f"feature_extractor.conv_layers.{parts[1]}." + ("conv" if len(parts) == 3 else "layer_norm")
+        elif parts[0] == "feature_projection":
+            name = "feature_projection." + {"ln": "layer_norm", "proj": "projection"}[parts[1]]
+        elif parts[0] == "pos_conv":
+            name = "encoder.pos_conv_embed.conv"
+        elif parts[0] == "encoder_ln":
+            name = "encoder.layer_norm"
+        elif parts[0] == "lm_head":
+            name = "lm_head"
+        elif parts[2] == "attn":
+            name = f"encoder.layers.{parts[1]}.attention." + {
+                "query": "q_proj", "key": "k_proj", "value": "v_proj", "out": "out_proj"}[parts[3]]
+        else:
+            name = f"encoder.layers.{parts[1]}.{names[parts[2]]}"
+        prefix = "" if name == "lm_head" else "wav2vec2."
+        tensors[f"{prefix}{name}.{leaf[parts[-1]]}"] = np.ascontiguousarray(arr.T if parts[-1] == "w" else arr)
+    src = os.path.join(root, "hf-wav2vec2-base")
+    os.makedirs(src)
+    write_safetensors(os.path.join(src, "model.safetensors"), tensors)
+    c = BASE_CONFIG
+    with open(os.path.join(src, "config.json"), "w") as f:
+        json.dump({
+            "architectures": ["Wav2Vec2ForCTC"], "vocab_size": c.vocab_size, "hidden_size": c.hidden_size,
+            "num_hidden_layers": c.num_layers, "num_attention_heads": c.num_heads,
+            "intermediate_size": c.intermediate_size, "conv_dim": list(c.conv_dim),
+            "conv_kernel": list(c.conv_kernel), "conv_stride": list(c.conv_stride),
+            "num_conv_pos_embeddings": c.num_conv_pos_embeddings,
+            "num_conv_pos_embedding_groups": c.num_conv_pos_embedding_groups,
+            "do_stable_layer_norm": c.do_stable_layer_norm, "feat_extract_norm": c.feat_extract_norm,
+        }, f)
+    with open(os.path.join(src, "vocab.json"), "w") as f:
+        json.dump(DEFAULT_EN_VOCAB, f)
+    return src
+
+
+def make_pyannote_bin(root: str) -> str:
+    """PyanNet at the default config (seeded ``init_params``) as pyannote's
+    ``pytorch_model.bin``: a state dict under ``state_dict`` with the
+    ``model.`` prefix, torch's LSTM layout (the JAX bias as ``bias_ih``, a
+    zero ``bias_hh``) and SincNet's band edges (``low_hz_``, ``band_hz_``,
+    mel-spaced as SincNet starts them) in place of the first convolution."""
+    import numpy as np
+    import torch
+
+    from whisperx_tpu_torch.convert.checkpoint import pyannote_to_numpy
+    from whisperx_tpu_torch.models import pyannote
+
+    cfg = pyannote.PyanNetConfig()
+    flat = pyannote_to_numpy(pyannote.init_params(cfg, torch.Generator("cuda").manual_seed(0)))
+    sd = {"sincnet.wav_norm1d.weight": flat["wav_norm/g"], "sincnet.wav_norm1d.bias": flat["wav_norm/b"]}
+    mel = np.linspace(2595 * np.log10(1 + 30 / 700), 2595 * np.log10(1 + 7950 / 700), cfg.sincnet_filters[0] + 1)
+    hz = 700 * (10 ** (mel / 2595) - 1)
+    sd["sincnet.conv1d.0.low_hz_"] = (hz[:-1] - 50.0).astype(np.float32)[:, None]
+    sd["sincnet.conv1d.0.band_hz_"] = np.diff(hz).astype(np.float32)[:, None]
+    for i in range(len(cfg.sincnet_filters)):
+        sd[f"sincnet.norm1d.{i}.weight"] = flat[f"sincnet/{i}/norm/g"]
+        sd[f"sincnet.norm1d.{i}.bias"] = flat[f"sincnet/{i}/norm/b"]
+        if i:
+            sd[f"sincnet.conv1d.{i}.weight"] = flat[f"sincnet/{i}/w"].transpose(2, 1, 0)
+    for i in range(cfg.lstm_layers):
+        for direction, suffix in (("fwd", ""), ("bwd", "_reverse")):
+            node = f"lstm/{i}/{direction}"
+            sd[f"lstm.weight_ih_l{i}{suffix}"] = flat[f"{node}/wx"].T
+            sd[f"lstm.weight_hh_l{i}{suffix}"] = flat[f"{node}/wh"].T
+            sd[f"lstm.bias_ih_l{i}{suffix}"] = flat[f"{node}/b"]
+            sd[f"lstm.bias_hh_l{i}{suffix}"] = np.zeros_like(flat[f"{node}/b"])
+    for i in range(len(cfg.linear_dims)):
+        sd[f"linear.{i}.weight"], sd[f"linear.{i}.bias"] = flat[f"linear/{i}/w"].T, flat[f"linear/{i}/b"]
+    sd["classifier.weight"], sd["classifier.bias"] = flat["classifier/w"].T, flat["classifier/b"]
+    src = os.path.join(root, "pyannote-segmentation")
+    os.makedirs(src)
+    torch.save(
+        {"state_dict": {f"model.{k}": torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}},
+        os.path.join(src, "pytorch_model.bin"),
+    )
+    return src
+
+
+def make_wespeaker_pt(root: str) -> str:
+    """The ResNet34 at ``ResNetSpeakerConfig()`` (seeded ``init_params``) as
+    a wespeaker state dict: ``conv1``/``bn1``, ``layer<s>.<b>.*`` with
+    ``downsample.{0,1}``, the ``seg_1`` embedding; convolutions OIHW."""
+    import numpy as np
+    import torch
+
+    from whisperx_tpu_torch.convert.checkpoint import resnet_speaker_to_numpy
+    from whisperx_tpu_torch.models import resnet_speaker
+
+    cfg = resnet_speaker.ResNetSpeakerConfig()
+    flat = resnet_speaker_to_numpy(resnet_speaker.init_params(cfg, torch.Generator("cuda").manual_seed(1)))
+    bn = {"g": "weight", "b": "bias", "mean": "running_mean", "var": "running_var"}
+    sd = {}
+    for key, arr in flat.items():
+        parts = key.split("/")
+        if parts[0] == "proj":
+            sd[f"seg_1.{'weight' if parts[1] == 'w' else 'bias'}"] = arr.T if parts[1] == "w" else arr
+            continue
+        if parts[0] == "stem":
+            conv, norm, rest = "conv1", "bn1", parts[1:]
+        else:
+            block = f"layer{int(parts[1]) + 1}.{parts[2]}"
+            if parts[3] == "down":
+                conv, norm, rest = f"{block}.downsample.0", f"{block}.downsample.1", parts[4:]
+            else:
+                conv = norm = f"{block}.{parts[3]}"
+                rest = ["w"] if parts[3].startswith("conv") else ["bn", *parts[4:]]
+        if rest == ["w"]:
+            sd[f"{conv}.weight"] = arr.transpose(3, 2, 0, 1)  # HWIO → OIHW
+        else:
+            sd[f"{norm.replace('conv1', 'bn1') if parts[0] == 'stem' else norm}.{bn[rest[-1]]}"] = arr
+    path = os.path.join(root, "wespeaker.pt")
+    torch.save({f"model.{k}": torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}, path)
+    return path
+
+
+def convert_cli(*argv) -> subprocess.Popen:
+    """``python -m whisperx_tpu_torch.convert <argv>`` from this checkout."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    return subprocess.Popen(
+        [sys.executable, "-m", "whisperx_tpu_torch.convert", *argv],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+
+
+def converted(proc: subprocess.Popen, what: str, timeout: float = 900.0) -> str:
+    out, _ = proc.communicate(timeout=timeout)
+    if proc.returncode != 0 or f"converted {what}" not in out:
+        raise AssertionError(f"convert {what}: exit {proc.returncode}\n{out[-3000:]}")
+    return out
+
+
+def phase_convert() -> None:
+    """Phase 12: real-checkpoint bring-up through the port's own converter.
+    HF sources are written at the published widths (large-v3 in F16, from a
+    random large-v3 of seed 0; wav2vec2 base; PyanNet; the ResNet34), each
+    converted by ``python -m whisperx_tpu_torch.convert`` (Whisper with
+    ``--quantize int8``), checked on the host, and run on the card on the
+    path it serves."""
+    import collections
+
+    import numpy as np
+    import torch
+
+    import whisperx_tpu_torch
+    from whisperx_tpu_torch import alignment
+    from whisperx_tpu_torch.convert.checkpoint import read_checkpoint
+    from whisperx_tpu_torch.diarize import DiarizationPipeline
+    from whisperx_tpu_torch.models.whisper import load_model as load_whisper
+    from whisperx_tpu_torch.ops import quant_matmul as qm
+    from whisperx_tpu_torch.ops.flash_attention import flash_attention
+    from whisperx_tpu_torch.ops.quant_matmul import quant_matmul
+    from whisperx_tpu_torch.quant.core import quantize_weight
+    from whisperx_tpu_torch.utils.metrics import GLOBAL_TRACKER, profiler_trace
+
+    card = card_line()
+    audio = synth_speech(CONVERT_AUDIO_S, seed=10)
+    rng = np.random.default_rng(10)
+    heads = sorted(
+        (int(layer), int(head)) for layer, head in
+        {(int(rng.integers(16, 32)), int(rng.integers(0, 20))) for _ in range(10)}
+    )
+    for flag in ("WHISPERX_TPU_SPEAKER_CKPT", "WHISPERX_TPU_SEGMENTATION_CKPT",
+                 "WHISPERX_TPU_PLDA_CKPT", "WHISPERX_TPU_DIARIZE_CLUSTERING"):
+        os.environ.pop(flag, None)
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        # 1. the sources
+        t0 = time.perf_counter()
+        source = load_whisper("large-v3", device="cuda", seed=0)
+        src, tensors, expected, src_bytes = make_hf_whisper(root, source, heads)
+        del source
+        torch.cuda.empty_cache()
+        w2v_src = make_hf_wav2vec2(root)
+        seg_src, spk_src = make_pyannote_bin(root), make_wespeaker_pt(root)
+        t_sources = time.perf_counter() - t0
+
+        # 2. convert: Whisper with --quantize int8, the small families beside it
+        ck = os.path.join(root, "large-v3")
+        align_root = os.path.join(root, "align")
+        t0 = time.perf_counter()
+        whisper = convert_cli("whisper", "--src", src, "--out", ck, "--quantize", "int8")
+        small = {
+            "wav2vec2": convert_cli("wav2vec2", "--src", w2v_src, "--out", os.path.join(align_root, "en")),
+            "pyannote segmentation": convert_cli("pyannote", "--src", seg_src, "--out", os.path.join(root, "seg")),
+            "wespeaker embedding": convert_cli("wespeaker", "--src", spk_src, "--out", os.path.join(root, "spk")),
+        }
+        log = converted(whisper, "whisper")
+        t_convert = time.perf_counter() - t0
+        assert f"quantized (int8) → {ck}-int8" in log, log
+        for what, proc in small.items():
+            converted(proc, what)
+        t_small = time.perf_counter() - t0
+        sizes = {name: os.path.getsize(os.path.join(path, "weights.npz")) / 1e9
+                 for name, path in (("bf16", ck), ("int8", ck + "-int8"))}
+
+        # 3. the weights on the host: each tensor is its source's, after the
+        # converter's transposes, to the bit
+        t0 = time.perf_counter()
+        flat, config = read_checkpoint(ck)
+        assert set(flat) == set(expected), sorted(set(flat) ^ set(expected))[:5]
+        for key, (hf, transposed) in expected.items():
+            want = (tensors[hf].T if transposed else tensors[hf]).view(np.uint16)
+            got = flat[key]
+            assert got.dtype == np.float16 and np.array_equal(got.view(np.uint16), want), key
+        assert [tuple(h) for h in config["alignment_heads"]] == heads, config["alignment_heads"]
+        with open(os.path.join(ck, "vocab.tiktoken")) as f:
+            ranks = f.read().splitlines()
+        assert len(ranks) == 50257 and ranks[-1].endswith(" 50256"), (len(ranks), ranks[-1])
+        n_params = sum(a.size for a in flat.values())
+        t_check = time.perf_counter() - t0
+        del tensors
+        print(
+            f"[convert] {card}: HF large-v3 source (F16 model.safetensors, {src_bytes / 1e9:.3f} GB, "
+            f"written in {t_sources:.2f} s with the wav2vec2, PyanNet and ResNet34 sources); python -m "
+            f"whisperx_tpu_torch.convert whisper --quantize int8 {t_convert:.2f} s wall (read "
+            f"{src_bytes / 1e9:.3f} GB + {sizes['bf16']:.3f} GB, wrote weights.npz {sizes['bf16']:.3f} GB "
+            f"and {sizes['int8']:.3f} GB), the three small conversions beside it done at {t_small:.2f} s; "
+            f"{len(flat)} tensors, {n_params} parameters equal their F16 source to the bit "
+            f"({t_check:.2f} s); alignment heads {len(heads)} and vocab.tiktoken {len(ranks)} ranks carried"
+        )
+        del flat
+
+        # 4. the converted checkpoint on the card, then (7) traced
+        kw = dict(device="cuda", vad_method="energy", batch_size=8, compute_type="bfloat16",
+                  asr_options={"temperatures": (0.0,)})
+        options = dict(language="en", sample_len=CONVERT_SAMPLE_LEN)
+        t0 = time.perf_counter()
+        pipe = whisperx_tpu_torch.load_model(ck, **kw)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        assert pipe.model.alignment_heads == heads and pipe.model.name == "hf-large-v3"
+        assert all(p.is_cuda and p.dtype == torch.bfloat16 for p in pipe.model.parameters())
+
+        def run(p, trace_dir=None):
+            GLOBAL_TRACKER.reset()
+            before = flash_attention.launches
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if trace_dir is None:
+                result = p.transcribe(audio, **options)
+            else:
+                with profiler_trace(trace_dir):
+                    result = p.transcribe(audio, **options)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            passes = GLOBAL_TRACKER.report()["decode"]["calls"]
+            k1 = flash_attention.launches - before
+            assert k1 == p.model.dims.n_audio_layer * passes > 0, (k1, passes)
+            assert result["segments"], result
+            for seg in result["segments"]:
+                assert 0.0 <= seg["start"] < seg["end"] <= CONVERT_AUDIO_S + 1e-6, seg
+            return result, wall, passes, k1, int(GLOBAL_TRACKER.counters["decode_steps"])
+
+        result, t_bf16, passes, k1, steps = run(pipe)
+        trace_dir = os.path.join(root, "trace")
+        _, t_traced, _, _, _ = run(pipe, trace_dir)
+        (trace,) = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir)]
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+        k1_events = [e for e in events if e.get("cat") == "kernel" and "wholek_attention_bf16_kernel" in e.get("name", "")]
+        assert len(k1_events) == k1, (len(k1_events), k1)
+        text = " | ".join(s["text"] for s in result["segments"])[:80]
+        print(
+            f"[convert] {card}: load_model(<converted>) {t_load:.2f} s; transcribe {CONVERT_AUDIO_S:.0f} s "
+            f"({CONVERT_SAMPLE_LEN} tokens a row, one temperature) {t_bf16:.3f} s: {len(result['segments'])} "
+            f"segments ({text!r}), {passes} encoder passes, K1 {k1} (= 32 x {passes}), {steps} decode steps; "
+            f"alignment heads from the converted config; under profiler_trace {t_traced:.3f} s, a Chrome trace of {os.path.getsize(trace) / 1e6:.1f} MB with {len(events)} events, "
+            f"{len(k1_events)} of them K1's kernel (wholek_attention_bf16_kernel)"
+        )
+        del events, k1_events
+
+        # 5. the int8 copy: K4 per shape as the code implies, codes as the CPU's
+        t0 = time.perf_counter()
+        pipe8 = whisperx_tpu_torch.load_model(ck + "-int8", **kw)
+        torch.cuda.synchronize()
+        t_load8 = time.perf_counter() - t0
+        q_blocks = sorted({int(n.split(".")[2]) for n, m in pipe8.model.named_modules() if hasattr(m, "qw")})
+        assert q_blocks == list(range(1, 31)), q_blocks
+        real_int8_matmul, by_shape = qm.int8_matmul, collections.Counter()
+
+        def counted(x, qw, scale, group_size):
+            by_shape[(x.shape[0], x.shape[1], qw.shape[1])] += 1
+            return real_int8_matmul(x, qw, scale, group_size)
+
+        qm.int8_matmul, before = counted, quant_matmul.launches
+        try:
+            result8, t_int8, passes8, k1_8, steps8 = run(pipe8)
+        finally:
+            qm.int8_matmul = real_int8_matmul
+        k4 = quant_matmul.launches - before
+        want = k4_launches_per_shape(len(q_blocks), passes8, steps8, beams=1)
+        assert dict(by_shape) == want and k4 == sum(want.values()), (dict(by_shape), want, k4)
+        bf16_flat, _ = read_checkpoint(ck)
+        int8_flat, _ = read_checkpoint(ck + "-int8")
+        block = pipe8.model.decoder.blocks[1]
+        n_same = 0
+        for name, mod in block.named_modules():
+            if not hasattr(mod, "qw"):
+                continue
+            key = f"decoder/blocks/1/{name.replace('.', '/')}"
+            w = torch.tensor(bf16_flat[f"{key}/w"]).to(torch.bfloat16).float().numpy()
+            q = quantize_weight(w, "int8", 64)
+            for leaf in ("qw", "scale"):
+                cpu = q[leaf].numpy()
+                assert cpu.tobytes() == int8_flat[f"{key}/__quantized_linear__/{leaf}"].tobytes(), (key, leaf)
+                assert cpu.tobytes() == getattr(mod, leaf).cpu().numpy().tobytes(), (key, leaf)
+            n_same += 1
+        assert n_same == 10, n_same
+        del bf16_flat, int8_flat
+        print(
+            f"[convert] {card}: load_model(<converted>-int8) {t_load8:.2f} s; transcribe {t_int8:.3f} s: "
+            f"{len(result8['segments'])} segments, K1 {k1_8} (= 32 x {passes8}), K4 {k4} launches over "
+            + ", ".join(f"M={m} K={k} N={n}: {c}" for (m, k, n), c in sorted(by_shape.items()))
+            + f" (= k4_launches_per_shape(30 blocks, {passes8} passes, {steps8} steps, greedy)); decoder "
+            f"block 1's 10 int8 linears: codes and scales equal quantize_weight on the CPU of the bf16 weights, "
+            f"in the file and on the card"
+        )
+        del pipe8
+        torch.cuda.empty_cache()
+
+        # 6. the small families on the paths they serve
+        os.environ["WHISPERX_TPU_ALIGN_DIR"] = align_root
+        try:
+            t0 = time.perf_counter()
+            aligner, meta = whisperx_tpu_torch.load_align_model("en", device="cuda")
+            assert meta["random_weights"] is False and aligner.config.num_layers == 12, meta
+            aligned = alignment.align(result["segments"], aligner, meta, audio, "cuda")
+            torch.cuda.synchronize()
+            t_align = time.perf_counter() - t0
+        finally:
+            del os.environ["WHISPERX_TPU_ALIGN_DIR"]
+        words = aligned["word_segments"]
+        for seg in aligned["segments"]:
+            for w in seg["words"]:
+                assert "start" not in w or seg["start"] - 1e-6 <= w["start"] <= w["end"] <= seg["end"] + 1e-6, w
+        os.environ["WHISPERX_TPU_SEGMENTATION_CKPT"] = os.path.join(root, "seg")
+        os.environ["WHISPERX_TPU_SPEAKER_CKPT"] = os.path.join(root, "spk")
+        try:
+            diarizer = DiarizationPipeline(device="cuda")
+        finally:
+            del os.environ["WHISPERX_TPU_SEGMENTATION_CKPT"], os.environ["WHISPERX_TPU_SPEAKER_CKPT"]
+        assert diarizer.vad_model is None and diarizer.embedding.dim == 256
+        assert next(diarizer.embedding.model.parameters()).is_cuda
+        t0 = time.perf_counter()
+        turns = diarizer(audio)
+        torch.cuda.synchronize()
+        t_diar = time.perf_counter() - t0
+        for start, end in zip(turns["start"], turns["end"]):
+            assert 0.0 <= start <= end <= CONVERT_AUDIO_S + 1e-6, (start, end)
+        print(
+            f"[convert] {card}: converted wav2vec2 base through WHISPERX_TPU_ALIGN_DIR aligns the "
+            f"{len(result['segments'])} segments on cuda in {t_align:.3f} s ({len(words)} words); converted "
+            f"PyanNet + ResNet34 through WHISPERX_TPU_SEGMENTATION_CKPT / WHISPERX_TPU_SPEAKER_CKPT "
+            f"diarize the {CONVERT_AUDIO_S:.0f} s on cuda in {t_diar:.3f} s ({len(turns)} turns); Silero's "
+            f"routes need onnx or the network, which this machine lacks: not run here (the CPU tests hold "
+            f"them against JAX)"
+        )
+        del pipe, aligner, diarizer
+        torch.cuda.empty_cache()
+    print(f"[convert] {card}: phase {time.perf_counter() - t_phase:.1f} s, temporary files deleted")
+
+
 def free_port() -> int:
     import socket
 
@@ -2698,16 +3249,23 @@ def phase_small_serving(models: dict) -> None:
     pipeline and over the CPU pipeline (the same weights) gives the same
     body for one WAV POST and the same finals for one long-poll stream;
     then ``python -m whisperx_tpu_torch.serve --device cuda`` as a
-    subprocess answers /healthz and one POST, and exits 0 on SIGTERM."""
+    subprocess answers /healthz and one POST, and exits 0 on SIGTERM.
+
+    The stream's max-latency flush is a wall-clock cut: a chunk decode that
+    outlasts it on the CPU and not on the card splits the stream at other
+    places, so the comparison sets it out of reach (as the CPU tests do)
+    and the stream is cut at its silences only."""
     import dataclasses
+    import functools
     import signal
     import urllib.error
 
     import numpy as np
 
+    import whisperx_tpu_torch.serve.server as server_module
     from whisperx_tpu_torch.asr import TranscriptionPipeline
     from whisperx_tpu_torch.convert.checkpoint import save_checkpoint
-    from whisperx_tpu_torch.serve import BatchConfig, TranscriptionServer
+    from whisperx_tpu_torch.serve import BatchConfig, StreamingConfig, TranscriptionServer
     from whisperx_tpu_torch.vad import EnergyVAD
 
     clip = synth_speech(12.0, seed=12)
@@ -2715,24 +3273,29 @@ def phase_small_serving(models: dict) -> None:
     stream = np.concatenate([synth_speech(3.0, seed=13), gap, synth_speech(2.5, seed=14), gap])
     pcm = {"Content-Type": "audio/x-raw-pcm", "X-Format": "f32"}
     got = {}
-    for dev, model in models.items():
-        server = TranscriptionServer(
-            TranscriptionPipeline(model=model, vad_model=EnergyVAD(), asr_options={"temperatures": (0.0,)}),
-            model_name="test-nano", batch_config=BatchConfig(max_wait_ms=5),
-        )
-        base = f"http://127.0.0.1:{server.start_background(port=0)}"
-        try:
-            _, _, body = http(base + "/v1/audio/transcriptions?language=en", wav_bytes(clip), {"Content-Type": "audio/wav"})
-            post = json.loads(body)
-            post.pop("request_id"), post.pop("wall_s")
-            sid = json.loads(http(base + "/v1/stream/start?language=en", b"")[2])["stream_id"]
-            for i in range(0, len(stream), 8000):
-                http(base + f"/v1/stream/{sid}/audio", stream[i:i + 8000].tobytes(), pcm)
-            end = json.loads(http(base + f"/v1/stream/{sid}/end", b"")[2])
-            finals = [{k: v for k, v in r.items() if k != "latency_s"} for r in end["all_results"]]
-            got[dev] = (post, finals)
-        finally:
-            server.shutdown()
+    server_module.StreamingConfig = functools.partial(StreamingConfig, max_latency_seconds=1e9)
+    try:
+        for dev, model in models.items():
+            server = TranscriptionServer(
+                TranscriptionPipeline(model=model, vad_model=EnergyVAD(), asr_options={"temperatures": (0.0,)}),
+                model_name="test-nano", batch_config=BatchConfig(max_wait_ms=5),
+            )
+            base = f"http://127.0.0.1:{server.start_background(port=0)}"
+            try:
+                _, _, body = http(base + "/v1/audio/transcriptions?language=en", wav_bytes(clip),
+                                  {"Content-Type": "audio/wav"})
+                post = json.loads(body)
+                post.pop("request_id"), post.pop("wall_s")
+                sid = json.loads(http(base + "/v1/stream/start?language=en", b"")[2])["stream_id"]
+                for i in range(0, len(stream), 8000):
+                    http(base + f"/v1/stream/{sid}/audio", stream[i:i + 8000].tobytes(), pcm)
+                end = json.loads(http(base + f"/v1/stream/{sid}/end", b"")[2])
+                finals = [{k: v for k, v in r.items() if k != "latency_s"} for r in end["all_results"]]
+                got[dev] = (post, finals)
+            finally:
+                server.shutdown()
+    finally:
+        server_module.StreamingConfig = StreamingConfig
     assert got["cuda"] == got["cpu"], got
     assert got["cuda"][0]["segments"] and got["cuda"][1], got["cuda"]
     print(
@@ -2786,6 +3349,15 @@ def phase_small_serving(models: dict) -> None:
     )
 
 
+def timed(phase, *args, label: str = "", **kwargs):
+    """Run one phase and print its wall time: the script has 1200 s for
+    every phase, the kernels' build included."""
+    t0 = time.perf_counter()
+    out = phase(*args, **kwargs)
+    print(f"[time] {phase.__name__}{label}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "whisperx_tpu_torch")):
         print("chip_smoke: whisperx_tpu_torch/ not found beside this script", file=sys.stderr)
@@ -2802,10 +3374,10 @@ def main() -> int:
         os.environ.pop(flag, None)
     t_start = time.perf_counter()
     name = phase_card()
-    phase_build()
-    k1, k1b, k2 = phase_kernels()
-    k4, k4_shapes = phase_k4()
-    (k3, k3kt, k3i8), k3_shapes = phase_k3()
+    timed(phase_build)
+    k1, k1b, k2 = timed(phase_kernels)
+    k4, k4_shapes = timed(phase_k4)
+    (k3, k3kt, k3i8), k3_shapes = timed(phase_k3)
     if sys.argv[1:] == ["--kernels"]:  # phases 1-3 only
         print(f"[done] {REPO}: kernel phases passed in {time.perf_counter() - t_start:.1f} s")
         print(json.dumps({"kernels": [k1, k1b, k2, k3, k3kt, k3i8, k4],
@@ -2824,31 +3396,32 @@ def main() -> int:
     }
     for _, fn, attr in unused.values():
         setattr(fn, attr, 0)
-    pipe, main_result = phase_main_path(k1)
-    phase_word_timing(pipe)
+    pipe, main_result = timed(phase_main_path, k1)
+    timed(phase_word_timing, pipe)
     # the aligner's checkpoint, for the alignment phase and the CLI's
     with tempfile.TemporaryDirectory() as align_root:
         os.environ["WHISPERX_TPU_ALIGN_DIR"] = make_align_checkpoint(align_root)
-        phase_alignment(main_result["segments"])
-        phase_decode_profile(pipe.model)
-        phase_cross_decode_step(pipe.model)
+        timed(phase_alignment, main_result["segments"])
+        timed(phase_decode_profile, pipe.model)
+        timed(phase_cross_decode_step, pipe.model)
         with cross_decode_opt_in():
-            phase_decode_profile(pipe.model, "profile cross-decode", k3=k3)
-        phase_transcribe_many(pipe, k3)
-        phase_speculative(pipe)
-        phase_serving(pipe)
+            timed(phase_decode_profile, pipe.model, "profile cross-decode", k3=k3, label=" (cross-decode)")
+        timed(phase_transcribe_many, pipe, k3)
+        timed(phase_speculative, pipe)
+        timed(phase_serving, pipe)
         del pipe
         torch.cuda.empty_cache()
-        phase_sequential()
-        model = phase_cli(k4, k4_shapes)
+        timed(phase_sequential)
+        model = timed(phase_cli, k4, k4_shapes)
         del os.environ["WHISPERX_TPU_ALIGN_DIR"]
-    phase_decode_profile(model, "profile int8", beam_size=5)
-    phase_speculative_int8(model, k4_shapes)
+    timed(phase_decode_profile, model, "profile int8", beam_size=5, label=" (int8)")
+    timed(phase_speculative_int8, model, k4_shapes)
     del model
     torch.cuda.empty_cache()
-    phase_vads()
-    phase_diarization(main_result)
-    phase_small_model()
+    timed(phase_vads)
+    timed(phase_diarization, main_result)
+    timed(phase_convert)
+    timed(phase_small_model)
     for label, (entry, fn, attr) in unused.items():
         entry["launches"] = getattr(fn, attr)
         print(f"[paths] {label} launches over every path: {entry['launches']}")

@@ -197,6 +197,7 @@ def _same_outputs(jax_dir, torch_dir):
 # what the JAX CLI writes
 WORDS = {"--word_timestamps True", "--vad_method none --word_timestamps True"}
 PORTED = WORDS | {"align", "--hallucination_silence_threshold 2", "--draft_model tiny",
+                  "--draft_model self:1",
                   "--vad_method pyannote", "--vad_method hybrid", "--diarize",
                   "--backend sequential --diarize"}
 # the diarization switches, unset: the weightless default models
@@ -211,6 +212,9 @@ DIARIZE_SWITCHES = ("WHISPERX_TPU_SPEAKER_CKPT", "WHISPERX_TPU_SEGMENTATION_CKPT
         ("--word_timestamps", "True"),
         ("--hallucination_silence_threshold", "2"),
         ("--draft_model", "tiny"),
+        # a cheap draft (the model's first decoder layer, its encoder
+        # shared) at the default γ
+        ("--draft_model", "self:1"),
         # the sequential modes run (test_cli_sequential_modes_write_the_same_
         # files_as_jax), and with diarization after the seek loop
         pytest.param(("--backend", "sequential", "--diarize"), id="--backend sequential"),
@@ -231,8 +235,9 @@ def test_not_ported_flags_raise(workdir, extra, monkeypatch, capsys):
     alignment with no aligner checkpoint (both skip it, with a message),
     word timing in the batched pipeline and in the seek loop, the
     hallucination-silence threshold with it, speculative decoding with a
-    random ``tiny`` draft (token-identical to greedy whatever the draft's
-    weights; the CLI's beam 5 is dropped with a warning in both), the
+    random ``tiny`` draft at γ 1 and a ``self:1`` draft at the default γ
+    (token-identical to greedy whatever the draft's weights; the CLI's
+    beam 5 is dropped with a warning in both), the
     pyannote and hybrid VADs without checkpoints (energy scores through
     Binarize; the energy fallback), and diarization with the weightless
     default (energy VAD windows, spectral embeddings, AHC) after the batched
@@ -248,6 +253,12 @@ def test_not_ported_flags_raise(workdir, extra, monkeypatch, capsys):
         return
     if case == "--hallucination_silence_threshold 2":
         extra = ("--word_timestamps", "True", *extra)  # it needs the words
+    if case == "--draft_model tiny":
+        # one drafted token a verify pass: the random draft's 224 steps at
+        # the default γ of 4 made this the slowest case of the file, and the
+        # files are the same at any γ (test_torch_speculative.py holds the
+        # other γ against JAX)
+        extra = (*extra, "--spec_gamma", "1")
     # JAX on one device: its data-parallel route over the suite's 8 virtual
     # CPU devices gives the same files ~10x slower
     extra = (*extra, "--data_parallel", "off")
@@ -263,7 +274,7 @@ def test_not_ported_flags_raise(workdir, extra, monkeypatch, capsys):
     for pkg in ("jax", "torch"):
         dirs[pkg] = workdir / f"{pkg}_{out}"
         argv[argv.index("-o") + 1] = str(dirs[pkg])
-        if case == "--draft_model tiny":
+        if case.startswith("--draft_model"):
             with pytest.warns(UserWarning, match="greedy-only; ignoring beam_size=5"):
                 _run(pkg, argv + list(extra))
         else:

@@ -7,6 +7,7 @@ be byte-identical, timestamps included. With ``int8`` / ``int4`` both
 packages quantize the bf16 decoder weights to the same codes; the port runs
 K4's arithmetic (int8) or the dequant-dot (int4), JAX its XLA dequant-dot."""
 
+import fcntl
 import os
 
 import pytest
@@ -19,13 +20,20 @@ from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 def micro_ckpt():
     """Resolved as tests/test_learned_e2e.py resolves it: an explicit
     WHISPERX_TPU_MICRO_CKPT, else the trainer's content-hash cache (trained
-    on first use)."""
+    on first use). The port's files that use it (this one and
+    test_torch_sequential.py) take an exclusive lock beside the cache
+    around the lookup, so that on a cold cache one of them trains and the
+    other waits and reads what it wrote, instead of both training at once."""
     reuse = os.environ.get("WHISPERX_TPU_MICRO_CKPT")
     if reuse and os.path.exists(os.path.join(reuse, "weights.npz")):
         return reuse
     from whisperx_tpu.train import micro_checkpoint_cached
 
-    path, report = micro_checkpoint_cached()
+    root = os.path.expanduser("~/.cache/whisperx_tpu")
+    os.makedirs(root, exist_ok=True)
+    with open(os.path.join(root, "micro_ckpt.torch_tests.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        path, report = micro_checkpoint_cached()
     assert report["final_loss"] < 0.05, report
     assert report.get("min_margin", 0) > 0.3, report
     return path

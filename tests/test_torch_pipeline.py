@@ -88,14 +88,15 @@ def test_port_runs_without_jax(nano_ckpt):
     """A fresh interpreter imports the port (its CLI, orchestrator, backends,
     seek loop, kernels' modules, quantization, alignment, word timing and
     the native audio library, speculative decoding, every VAD, diarization,
-    the unified pipeline and the serving layer too), transcribes with word timestamps, with a
+    the unified pipeline, the serving layer and the converters with their
+    entry point too), transcribes with word timestamps, with a
     VAD and without, with a ``self:1`` draft behind the pyannote VAD, runs
     the Silero network through the batch processor, aligns (random weights,
     allowed by the suite's ``WHISPERX_TPU_ALLOW_RANDOM_ALIGN``), diarizes on
     both paths (the ResNet embedding with PLDA clustering; a segmenter) and
     scores the turns, and runs ``load_pipeline`` with diarization; neither
-    jax nor any module of the JAX package is loaded, nor pandas by the
-    imports."""
+    jax nor any module of the JAX package is loaded, nor safetensors or
+    transformers, nor pandas by the imports."""
     code = textwrap.dedent(
         f"""
         import sys
@@ -125,6 +126,13 @@ def test_port_runs_without_jax(nano_ckpt):
         import whisperx_tpu_torch.utils.wer
         import whisperx_tpu_torch.serve
         import whisperx_tpu_torch.serve.__main__
+        import whisperx_tpu_torch.convert.__main__
+        import whisperx_tpu_torch.convert.pyannote
+        import whisperx_tpu_torch.convert.safetensors
+        import whisperx_tpu_torch.convert.silero
+        import whisperx_tpu_torch.convert.wav2vec2_hf
+        import whisperx_tpu_torch.convert.wespeaker
+        import whisperx_tpu_torch.convert.whisper_hf
         # no module of the port imports pandas (alignment's optional nltk
         # may, when it runs)
         assert not [m for m in sys.modules if m == "pandas" or m.startswith("pandas.")]
@@ -178,6 +186,7 @@ def test_port_runs_without_jax(nano_ckpt):
             m for m in sys.modules
             if m == "jax" or m.startswith("jax.") or m == "jaxlib"
             or m == "whisperx_tpu" or m.startswith("whisperx_tpu.")
+            or m.split(".")[0] in ("safetensors", "transformers")
         )
         assert not bad, bad
         print("OK")
@@ -250,7 +259,11 @@ def _same_result(got, want):
         dict(vad_method="pyannote"),
         dict(vad_method="hybrid"),
         dict(asr_options={"draft_model": "self:1"}),
-        dict(asr_options={"draft_model": "tiny"}),
+        # one drafted token a verify pass: the random tiny draft's steps
+        # (its cross-attention over 1500 frames) made these the slowest
+        # cases; greedy's tokens and JAX's segments hold at any γ
+        # (test_torch_speculative.py holds the other γ against JAX)
+        dict(asr_options={"draft_model": "tiny", "spec_gamma": 1}),
         dict(asr_options={"word_timestamps": True}),
     ],
 )
@@ -279,7 +292,9 @@ def test_unported_load_options_raise(kwargs, nano_ckpt, speech35):
 
 
 @pytest.mark.parametrize(
-    "option", [{"draft_model": "tiny"}, {"word_timestamps": True}, {"draft_model": "self:1"}]
+    "option",
+    # γ 1 for the random tiny draft, as in test_unported_load_options_raise
+    [{"draft_model": "tiny", "spec_gamma": 1}, {"word_timestamps": True}, {"draft_model": "self:1"}],
 )
 def test_unported_call_options_raise(option, nano_ckpt, speech35):
     """A misspelt per-call option is a ``TypeError``. The per-call options

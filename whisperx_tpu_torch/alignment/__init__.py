@@ -132,7 +132,7 @@ def align(
         warnings.warn(
             "Skipping alignment: the wav2vec2 model has RANDOM weights "
             f"(no converted checkpoint for {align_model_metadata.get('language')!r}). "
-            "Convert one with whisperx_tpu.convert, or set "
+            "Convert one with python -m whisperx_tpu_torch.convert wav2vec2, or set "
             "WHISPERX_TPU_ALLOW_RANDOM_ALIGN=1 to force."
         )
         return {

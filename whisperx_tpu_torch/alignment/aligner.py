@@ -222,7 +222,8 @@ def load_align_model(
         warnings.warn(
             f"No converted wav2vec2 checkpoint for {model_name!r}; using "
             "RANDOM weights (alignment output will be structurally valid "
-            "but timings meaningless). Run whisperx_tpu.convert.",
+            "but timings meaningless). Convert one with python -m "
+            "whisperx_tpu_torch.convert wav2vec2.",
             stacklevel=2,
         )
         gen = torch.Generator(device=dev).manual_seed(0)

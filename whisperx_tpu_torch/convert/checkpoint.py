@@ -13,6 +13,9 @@ A checkpoint directory holds (``whisperx_tpu/convert/checkpoint.py``):
 A weight-only quantized linear is stored as
 ``<path>/__quantized_linear__/{qw,scale,b,meta}`` (``meta`` = [bits,
 group_size]); it becomes a ``quant.QuantizedLinear``.
+
+``save_checkpoint`` writes a port module or, for the converters, a numpy
+tree of nested dicts and lists (``flatten_params``).
 """
 
 from __future__ import annotations
@@ -51,6 +54,38 @@ def _quantized_linear(node: dict, device=None):
 def _array(t: torch.Tensor) -> np.ndarray:
     t = t.detach().cpu()
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _to_numpy(x) -> np.ndarray:
+    """An array ``np.savez`` can hold: a type numpy has no code for (JAX's
+    bfloat16 and the other ml-dtypes) is widened to f32, as the JAX
+    package's ``_to_numpy`` does."""
+    arr = np.asarray(x)
+    if arr.dtype.kind not in "fiub":
+        arr = arr.astype(np.float32)
+    return arr
+
+
+def flatten_params(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    """A numpy tree (nested dicts and lists, as the converters build it)
+    flattened as the JAX package's ``flatten_tree`` flattens a parameter
+    tree: ``a/b/0/w`` names, in the tree's order; an empty dict or list
+    below the root becomes ``<path>__empty_dict__`` / ``__empty_list__``
+    (an empty int8 array), so that it survives the round trip."""
+    flat: Dict[str, np.ndarray] = {}
+    if isinstance(tree, dict):
+        if not tree and prefix:
+            flat[f"{prefix[:-1]}{_EMPTY_DICT}"] = np.zeros(0, np.int8)
+        for k, v in tree.items():
+            flat.update(flatten_params(v, f"{prefix}{k}/"))
+    elif isinstance(tree, (list, tuple)):
+        if not tree and prefix:
+            flat[f"{prefix[:-1]}{_EMPTY_LIST}"] = np.zeros(0, np.int8)
+        for i, v in enumerate(tree):
+            flat.update(flatten_params(v, f"{prefix}{i}/"))
+    else:
+        flat[prefix[:-1]] = _to_numpy(tree)
+    return flat
 
 
 def flatten_tree(model) -> Dict[str, np.ndarray]:
@@ -383,11 +418,16 @@ def resnet_speaker_from_numpy(
     return model.eval()
 
 
-def save_checkpoint(path: str, model, config: dict) -> None:
-    """Write a port module's weights and ``config`` in the JAX package's
-    layout: ``weights.npz`` of ``flatten_tree`` names, and ``config.json``."""
+def save_checkpoint(path: str, params, config: dict) -> None:
+    """Write weights and ``config`` in the JAX package's layout:
+    ``weights.npz`` and ``config.json``. ``params`` is a port module
+    (``flatten_tree``) or a numpy tree (``flatten_params``)."""
     os.makedirs(path, exist_ok=True)
-    np.savez(os.path.join(path, "weights.npz"), **flatten_tree(model))
+    if isinstance(params, torch.nn.Module):
+        flat = flatten_tree(params)
+    else:
+        flat = flatten_params(params)
+    np.savez(os.path.join(path, "weights.npz"), **flat)
     with open(os.path.join(path, "config.json"), "w") as f:
         json.dump(config, f, indent=2)
 

@@ -69,9 +69,10 @@ def load_model(
             vocab = default_partial_vocab_path()
         model, config = load_checkpoint(
             name_or_path, dtype, dev,
-            name=os.path.basename(os.path.normpath(name_or_path)),
             vocab_path=vocab if os.path.exists(vocab) else None,
         )
+        # the converter's name, else the directory's (as the JAX package)
+        model.name = config.get("name", os.path.basename(name_or_path))
         if config.get("alignment_heads"):  # the published mask, when converted
             model.alignment_heads = [tuple(x) for x in config["alignment_heads"]]
         return model.eval()

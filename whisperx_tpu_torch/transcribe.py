@@ -193,7 +193,9 @@ def transcribe_task(args: dict, parser: argparse.ArgumentParser):
             # garbage timings are worse than none: skip instead of emitting
             print(
                 ">>Skipping alignment: no converted wav2vec2 checkpoint for "
-                f"language {align_language!r} (run whisperx_tpu.convert, or "
+                f"language {align_language!r} (convert one with python -m "
+                "whisperx_tpu_torch.convert wav2vec2 --src <HF dir> --out "
+                f"<dir>/{align_language} and set WHISPERX_TPU_ALIGN_DIR=<dir>, or "
                 "set WHISPERX_TPU_ALLOW_RANDOM_ALIGN=1 to force)."
             )
             align_model = None

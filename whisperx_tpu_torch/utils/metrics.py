@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import time
 from collections import defaultdict
 from dataclasses import dataclass, field
@@ -123,6 +124,28 @@ class RTFTracker:
 
 
 GLOBAL_TRACKER = RTFTracker()
+
+
+@contextlib.contextmanager
+def profiler_trace(log_dir: Optional[str] = None):
+    """Trace the block with ``torch.profiler``: host (CPU) activity, and the
+    device's kernels and copies when a GPU is present. On exit a Chrome
+    trace, ``<host>_<pid>.<ms>.pt.trace.json``, is written into ``log_dir``
+    (default ``whisperx_tpu_torch_trace`` in the temporary directory, which
+    honours ``TMPDIR``; TensorBoard's PyTorch profiler plugin and
+    ``chrome://tracing`` read it)."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    if log_dir is None:
+        log_dir = os.path.join(tempfile.gettempdir(), "whisperx_tpu_torch_trace")
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir)):
+        yield log_dir
 
 
 def device_memory_report() -> Dict[str, dict]:
