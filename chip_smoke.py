@@ -23,7 +23,8 @@ Phases, each of which passes or raises (the script then exits non-zero):
      after, and every kernel of the path must have launched;
   5. decode profile: the main path's model decodes one batch of 8 chunks
      greedily for 48 steps, timed on the host clock over 3 runs, then once
-     under ``torch.profiler`` (device busy share, kernels by device time);
+     for 24 steps under ``torch.profiler`` (device busy share, kernels by
+     device time);
      then the same with the cross-decode opt-in
      (``WHISPERX_TPU_CROSS_DECODE=1``): K3 must launch once per decoder
      layer per sampled step, and one step's logits must agree with the
@@ -157,6 +158,17 @@ Phases, each of which passes or raises (the script then exits non-zero):
      whisperx_tpu_torch.serve --model <nano dir> --device cuda`` as a
      subprocess answers ``/healthz`` and one POST, then exits 0 within 10 s
      of SIGTERM.
+  13. scale-out (after 11, on the main path's model; one card, whose
+     device repeats in every mesh): ``DataParallelPipeline`` over two
+     replicas on 60 s at 48 tokens a row (segments equal to the plain
+     pipeline's at each replica's batch; K1 32 × 2 per decode); the model
+     split ``n_model=2``: bf16 encoder output and first-step logits within
+     2x the whole model's own bf16-vs-f32 error, K1 64 per encoder pass; the
+     f32 copy's greedy tokens (4 windows, 24 steps, TF32 off) identical to
+     the whole f32 model's; test-nano with int8 weights split the same,
+     tokens identical, K4 launched; two ``python -m whisperx_tpu_torch``
+     processes with torchrun's ``RANK`` / ``WORLD_SIZE`` owning disjoint,
+     covering slices of three files.
 
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA GPU, or without the
@@ -164,7 +176,8 @@ package beside this file, it exits non-zero and prints no result.
 
     python3 chip_smoke.py --kernels
 
-runs phases 1-3 only: every kernel's checks, determinism and per-shape
+runs phases 1-3 only; ``--parallel`` phases 1, 2 and 13, the latter on a
+freshly loaded large-v3. ``--kernels``: every kernel's checks, determinism and per-shape
 times (K1, K1b, K2, K4, K3, K3kt, K3i8), and prints their entries. Copied
 into a checkout of another commit, it times that commit's kernels the same
 way: run both in one call to compare two versions on one card.
@@ -197,6 +210,9 @@ CROSS_DECODE_FLAG = "WHISPERX_TPU_CROSS_DECODE"
 
 MAIN_AUDIO_S = 120.0
 PROFILE_BATCH, PROFILE_STEPS, PROFILE_RUNS = 8, 48, 3
+# the decode under the profiler: its trace's export and parse grow with the
+# steps (~23,800 events a step) and took most of each profile phase at 48
+PROFILE_TRACE_STEPS = 24
 CLI_AUDIO_S = 60.0
 MANY_AUDIO_S = (20.0, 33.0, 47.0)  # transcribe_many's three requests
 SEQ_AUDIO_S = 40.0  # the seek loop: two windows
@@ -241,6 +257,17 @@ SERVE_STREAM_S = {"partials": 8.0, "diarize": 20.0}
 # trace small enough to read back (~1.1 M events, 315 MB at 48 tokens)
 CONVERT_AUDIO_S = 30.0
 CONVERT_SAMPLE_LEN = 24
+# phase 13 (scale-out on one card): DP over 60 s of the main path's audio
+# and TP decodes, each bounded to a few tokens a row to fit its ~90 s
+PARALLEL_AUDIO_S = 60.0
+PARALLEL_SAMPLE_LEN = 48
+TP_BATCH, TP_SAMPLE_LEN = 4, 24
+# the split bf16 model's encoder output and first-step logits may differ from
+# the whole model's, and from f32 arithmetic, by this factor times the whole
+# bf16 model's own max error against f32 on the same weights: the split's
+# f32 partial sums round like the whole product, and a one-ulp change then
+# grows through the layers as rounding does (measured: ~1.0x the yardstick)
+TP_BF16_FACTOR = 2.0
 # openai/whisper-large-v3's published config.json (the HF source's widths)
 LARGE_V3_HF = {
     "d_model": 1280, "encoder_layers": 32, "decoder_layers": 32,
@@ -1149,6 +1176,8 @@ def phase_decode_profile(model, tag: str = "profile", beam_size=None, k3=None) -
     ``beam_size`` beams (the CLI's default of 5). ``k3``: under the
     cross-decode opt-in, the K3 kernel entry; every run must launch it once
     per decoder layer per sampled step, and its device time is printed."""
+    import dataclasses
+
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1166,7 +1195,7 @@ def phase_decode_profile(model, tag: str = "profile", beam_size=None, k3=None) -
 
     from whisperx_tpu_torch.ops.cross_attention_decode import cross_attention_decode
 
-    def run():
+    def run(opts=opts):
         cross_attention_decode.launches = 0
         h = decode_dispatch(model, mels, opts)
         torch.cuda.synchronize()
@@ -1189,13 +1218,13 @@ def phase_decode_profile(model, tag: str = "profile", beam_size=None, k3=None) -
     )
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run()
+        traced = run(dataclasses.replace(opts, sample_len=PROFILE_TRACE_STEPS))
         wall = time.perf_counter() - t0
     events = device_events(prof)
     assert events, f"[{tag}] the profiler recorded no device activity"
     device_s = sum(ms for _, ms, _ in events) / 1e3
     print(
-        f"[{tag}] one decode under the profiler: wall {wall:.4f} s, CUDA "
+        f"[{tag}] one decode of {traced} steps under the profiler: wall {wall:.4f} s, CUDA "
         f"kernels {device_s:.4f} s, device busy {device_s / wall:.1%}"
     )
     for name, ms, n in events[:10]:
@@ -1216,7 +1245,7 @@ def phase_decode_profile(model, tag: str = "profile", beam_size=None, k3=None) -
         k3_ms = sum(ms for _, ms, _ in k3_events)
         k3_calls = sum(n for _, _, n in k3_events)
         print(
-            f"[{tag}] K3 launched {model.dims.n_text_layer} x {steps} times per decode; "
+            f"[{tag}] K3 launched {model.dims.n_text_layer} x {traced} times per decode; "
             f"its device time {k3_ms:.3f} ms over {k3_calls} launches "
             f"({k3_ms / max(k3_calls, 1):.4f} ms each, {k3_ms / wall / 1e3:.1%} of the decode's wall)"
         )
@@ -3244,6 +3273,234 @@ def phase_serving(pipe) -> None:
           f"{time.perf_counter() - t_phase:.1f} s")
 
 
+def phase_parallel(pipe) -> None:
+    """Phase 13: scale-out (``whisperx_tpu_torch.parallel``) on one card,
+    whose device repeats in every mesh. (a) ``DataParallelPipeline`` over
+    ``make_mesh(n_data=2, devices=[cuda:0, cuda:0])`` (two replicas, one
+    model, two worker threads) on 60 s of the main path's audio at one
+    temperature: its segments equal the plain pipeline's at the replicas'
+    batch (each replica decodes 4 of the 8 rows), K1 32 × 2 per decode.
+    (b) ``n_model=2`` on the main path's model: the bf16 encoder output and
+    the first decode step's logits within TP_BF16_FACTOR × the whole
+    model's own bf16 error against f32 arithmetic on the same weights, of
+    the whole model's and of f32's; K1 64 per encoder pass; then the f32 copy of those weights,
+    TF32 off, whose greedy tokens on 4 windows over 24 steps must be the
+    whole f32 model's; and test-nano with int8 weights (f32 activations):
+    its tokens unchanged by the split, K4 launched. (c) two ``python -m
+    whisperx_tpu_torch`` processes with torchrun's variables (RANK 0 and
+    1, WORLD_SIZE 2, both on cuda:0) transcribe three test-nano clips: the
+    files each owns are disjoint and cover the list, each output is written
+    by its owner. The main path's model is left split: the phase runs last
+    on it."""
+    import copy
+    import warnings
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from whisperx_tpu_torch.audio import log_mel_batch, save_wav
+    from whisperx_tpu_torch.decoding import DecodingOptions, decode
+    from whisperx_tpu_torch.decoding.decode import decode_dispatch
+    from whisperx_tpu_torch.models.whisper import load_model as load_whisper
+    from whisperx_tpu_torch.models.whisper.model import (
+        KVCache,
+        SplitLinear,
+        decoder_forward,
+        encoder_forward,
+        new_self_cache,
+        precompute_cross_kv,
+    )
+    from whisperx_tpu_torch.ops.cross_attention_decode import cross_attention_decode
+    from whisperx_tpu_torch.ops.flash_attention import (
+        _attention_reference,
+        flash_attention,
+        wholek_attention,
+    )
+    from whisperx_tpu_torch.ops.quant_matmul import quant_matmul
+    from whisperx_tpu_torch.parallel import DataParallelPipeline, make_mesh, shard_params_tp
+    from whisperx_tpu_torch.quant import quantize_model
+    from whisperx_tpu_torch.utils.metrics import GLOBAL_TRACKER
+
+    model = pipe.model
+    dims = model.dims
+    n_layer = dims.n_audio_layer
+    cuda0 = torch.device("cuda", 0)
+    main_audio = synth_speech(MAIN_AUDIO_S, seed=1)
+
+    # the whole model's f32 twin (the bf16 weights, widened), taken first
+    t0 = time.perf_counter()
+    m32 = copy.deepcopy(model).float()
+    torch.cuda.synchronize()
+    print(f"[parallel] f32 copy of the main path's weights {time.perf_counter() - t0:.2f} s")
+
+    # (a) data parallelism: two replicas on one card
+    audio = main_audio[: int(PARALLEL_AUDIO_S * 16000)]
+    opts = dict(language="en", temperatures=(0.0,), sample_len=PARALLEL_SAMPLE_LEN)
+    plain = {}
+    for bs in (8, 4):
+        t0 = time.perf_counter()
+        plain[bs] = pipe.transcribe(audio, batch_size=bs, **opts)
+        torch.cuda.synchronize()
+        print(f"[parallel] plain pipeline, batch {bs}: {len(plain[bs]['segments'])} segments in "
+              f"{time.perf_counter() - t0:.3f} s")
+    mesh = make_mesh(n_data=2, devices=[cuda0, cuda0])
+    dp = DataParallelPipeline(pipe, mesh=mesh)
+    assert model._dp_replicas == [model, model], "rows of one device share one replica"
+    GLOBAL_TRACKER.reset()
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    got = dp.transcribe(audio, batch_size=8, **opts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    decodes = GLOBAL_TRACKER.report()["decode"]["calls"]
+    k1 = flash_attention.launches
+    assert k1 == n_layer * 2 * decodes > 0, (k1, decodes)
+    assert got["segments"] == plain[4]["segments"] and got["segments"], (got, plain[4])
+    print(
+        f"[parallel] DataParallelPipeline over {mesh}: {PARALLEL_AUDIO_S:.0f} s in {wall:.3f} s, "
+        f"{len(got['segments'])} segments equal to the plain pipeline's at batch 4 (each replica's "
+        f"rows); equal to batch 8's: {got['segments'] == plain[8]['segments']}; {decodes} decodes, "
+        f"K1 launches {k1} (= {n_layer} x 2 replicas x {decodes})"
+    )
+
+    # (b) tensor parallelism over two shards of one card
+    windows = np.stack(np.split(main_audio, TP_BATCH))  # 4 windows of 30 s
+    mel32 = log_mel_batch(windows, dims.n_mels, device="cuda")
+    mel16 = mel32.to(torch.bfloat16)
+    prefix = torch.tensor([[50258, 50259, 50360]] * 2, device="cuda")
+
+    @torch.inference_mode()
+    def first_step(m, mel):
+        """The encoder output and the first decode step's logits (the
+        prefill of the SOT sequence) of two windows, in f32."""
+        feats = encoder_forward(m.encoder, mel[:2], dims.n_audio_head)
+        ck, cv = precompute_cross_kv(m.decoder, feats, dims.n_text_head)
+        cache = KVCache(*new_self_cache(m.decoder, 2, 64, dims.n_text_head), ck, cv)
+        logits = decoder_forward(m.decoder, prefix, cache, 0, dims.n_text_head)[:, -1]
+        return feats.float(), logits.float()
+
+    tp_opts = DecodingOptions(language="en", sample_len=TP_SAMPLE_LEN, kv_quant=True)
+    enc16, log16 = first_step(model, mel16)
+    enc32, log32 = first_step(m32, mel32)
+    t0 = time.perf_counter()
+    want32 = decode(m32, mel32, tp_opts)
+    torch.cuda.synchronize()
+    whole_s = time.perf_counter() - t0
+    mesh_tp = make_mesh(n_data=1, n_model=2, devices=[cuda0, cuda0])
+    for m in (model, m32):
+        shard_params_tp(m, mesh_tp)
+    blk = model.encoder.blocks[0]
+    assert isinstance(blk.attn.query, SplitLinear) and [h1 - h0 for _, h0, h1 in blk.tp.heads] == [10, 10]
+    # K1 at a shard's shape: batch 8 of the main path, 10 of the 20 heads
+    bh, t, d = PROFILE_BATCH * 10, 1500, 64
+    q, k, v = attention_case(bh, t, d, torch.bfloat16, seed=3)
+    err_k1 = check_attention("K1 TP shard", wholek_attention(q, k, v), _attention_reference(q, k, v),
+                             1e-2, q.shape)
+    e = kernel_entry("K1 TP shard", "flash_attention.cu", "whisperx_tpu/ops/flash_attention.py:125",
+                     err_k1, cuda_ms(lambda: wholek_attention(q, k, v)),
+                     cuda_ms(lambda: _attention_reference(q, k, v), iters=5),
+                     4 * bh * t * d * 2, 4 * bh * t * t * d, PEAK_OPS_PER_S["torch.bfloat16"],
+                     cuda_ms(lambda: F.scaled_dot_product_attention(q[None], k[None], v[None])))
+    print(f"[parallel] K1 at a TP shard's shape [{bh}, {t}, {d}] bf16: kernel {e['ms']:.4f} ms, plain "
+          f"{e['plain_ms']:.4f} ms, sdpa {e['library_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms by "
+          f"{e['bound_by']}; {card_line()}")
+    del q, k, v
+    flash_attention.launches = 0
+    enc_tp, log_tp = first_step(model, mel16)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == 2 * n_layer, flash_attention.launches  # 64 per encoder pass
+    # the tolerance: TP_BF16_FACTOR × the whole bf16 model's own error
+    # against f32 arithmetic on the same weights (its rounding); the split
+    # may move a value by that much from the whole model and from f32
+    for what, tp, whole, f32 in (("encoder", enc_tp, enc16, enc32), ("logits", log_tp, log16, log32)):
+        e_split, e_f32, e_bf16 = ((a - b).abs() for a, b in ((tp, whole), (tp, f32), (whole, f32)))
+        tol = TP_BF16_FACTOR * e_bf16.max().item()
+        print(
+            f"[parallel] TP bf16 {what}: max |split - whole| {e_split.max().item():.6f} (mean "
+            f"{e_split.mean().item():.2e}), max |split - f32| {e_f32.max().item():.6f}, whole bf16 "
+            f"vs f32 {e_bf16.max().item():.6f} (mean {e_bf16.mean().item():.2e}); tolerance {tol:.6f}"
+        )
+        assert e_split.max().item() <= tol and e_f32.max().item() <= tol, what
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    got32 = decode(m32, mel32, tp_opts)
+    torch.cuda.synchronize()
+    split_s = time.perf_counter() - t0
+    assert flash_attention.launches == 2 * n_layer, flash_attention.launches
+    assert [r.tokens for r in got32] == [r.tokens for r in want32], "TP f32 tokens"
+    assert all(len(r.tokens) == TP_SAMPLE_LEN for r in got32)
+    lp = max(abs(a.avg_logprob - b.avg_logprob) for a, b in zip(got32, want32))
+    print(
+        f"[parallel] TP f32 (TF32 off), batch {TP_BATCH}, {TP_SAMPLE_LEN} steps: tokens identical "
+        f"to the whole f32 model's; max |avg_logprob diff| {lp:.2e}; decode {split_s:.3f} s split, "
+        f"{whole_s:.3f} s whole; K1 {2 * n_layer} per encoder pass"
+    )
+    del m32, want32, got32
+    torch.cuda.empty_cache()
+
+    # the K3 opt-in on the split model: each shard's one-token cross-attention
+    # over its own heads' int8 cache
+    with cross_decode_opt_in():
+        cross_attention_decode.launches = 0
+        h = decode_dispatch(model, mel16, DecodingOptions(language="en", sample_len=8, kv_quant=True))
+        torch.cuda.synchronize()
+    want = dims.n_text_layer * 2 * h["steps"]
+    assert cross_attention_decode.launches == want > 0, (cross_attention_decode.launches, want)
+    print(f"[parallel] K3 opt-in, bf16 split over 2, batch {TP_BATCH}: launched {want} times "
+          f"(= {dims.n_text_layer} layers x 2 shards x {h['steps']} steps) on [{TP_BATCH}, 1, 10, 64] "
+          f"head slices")
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the partial vocabulary's notice
+        nano = quantize_model(load_whisper("test-nano", dtype=torch.float32, device="cuda"), "int8")
+        mel_nano = log_mel_batch(windows, nano.dims.n_mels, device="cuda")
+        want = decode(nano, mel_nano, tp_opts)
+        shard_params_tp(nano, mesh_tp)
+        quant_matmul.launches = 0
+        got = decode(nano, mel_nano, tp_opts)
+    assert [r.tokens for r in got] == [r.tokens for r in want], "TP int8 test-nano tokens"
+    assert quant_matmul.launches > 0
+    print(f"[parallel] test-nano int8 (f32 activations) split over 2: tokens identical to the whole "
+          f"model's; K4 launched {quant_matmul.launches} times on the whole quantized linears")
+
+    # (c) two processes, torchrun's variables, one card
+    with tempfile.TemporaryDirectory() as root:
+        wavs = []
+        for i in range(3):
+            wavs.append(os.path.join(root, f"clip{i}.wav"))
+            save_wav(wavs[-1], synth_speech(2.0, seed=20 + i))
+        env = {k: v for k, v in os.environ.items() if k not in ("RANK", "WORLD_SIZE")}
+        env.update(PYTHONPATH=REPO, WORLD_SIZE="2", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()))
+        t0 = time.perf_counter()
+        procs = [
+            subprocess.Popen(
+                [sys.executable, "-m", "whisperx_tpu_torch", *wavs, "--device", "cuda",
+                 "--model", "test-nano", "--vad_method", "energy", "--language", "en", "--no_align",
+                 "--beam_size", "1", "--temperature_increment_on_fallback", "None", "-f", "json",
+                 "-o", os.path.join(root, f"out{rank}")],
+                env={**env, "RANK": str(rank), "LOCAL_RANK": str(rank)}, cwd=root,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            )
+            for rank in (0, 1)
+        ]
+        try:
+            outs = [p.communicate(timeout=300) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        for p, (so, se) in zip(procs, outs):
+            assert p.returncode == 0, (p.returncode, so[-2000:], se[-3000:])
+        owned = [sorted(os.listdir(os.path.join(root, f"out{rank}"))) for rank in (0, 1)]
+        assert ">>Host 0/2: 2 of 3 files" in outs[0][0] and ">>Host 1/2: 1 of 3 files" in outs[1][0]
+        assert owned == [["clip0.json", "clip2.json"], ["clip1.json"]], owned
+    print(f"[parallel] two processes (RANK 0, 1 of WORLD_SIZE 2) on cuda:0: files {owned[0]} and "
+          f"{owned[1]}, disjoint and covering, each written by its owner; {wall:.1f} s")
+
+
 def phase_small_serving(models: dict) -> None:
     """Phase 7's serving checks: the f32 test-nano server over the CUDA
     pipeline and over the CPU pipeline (the same weights) gives the same
@@ -3375,6 +3632,15 @@ def main() -> int:
     t_start = time.perf_counter()
     name = phase_card()
     timed(phase_build)
+    if sys.argv[1:] == ["--parallel"]:  # phase 13 alone, on a fresh large-v3
+        import whisperx_tpu_torch
+
+        pipe = whisperx_tpu_torch.load_model(
+            "large-v3", vad_method="energy", batch_size=8, compute_type="bfloat16"
+        )
+        timed(phase_parallel, pipe)
+        print(f"[done] {REPO}: phase 13 passed in {time.perf_counter() - t_start:.1f} s")
+        return 0
     k1, k1b, k2 = timed(phase_kernels)
     k4, k4_shapes = timed(phase_k4)
     (k3, k3kt, k3i8), k3_shapes = timed(phase_k3)
@@ -3409,6 +3675,7 @@ def main() -> int:
         timed(phase_transcribe_many, pipe, k3)
         timed(phase_speculative, pipe)
         timed(phase_serving, pipe)
+        timed(phase_parallel, pipe)
         del pipe
         torch.cuda.empty_cache()
         timed(phase_sequential)

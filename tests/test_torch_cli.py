@@ -3,9 +3,8 @@ choices and defaults (but ``--device`` and ``--version``); byte-identical
 transcripts from the same f32 checkpoint, with the default beam search, the
 int8 path, the sequential modes (``--vad_method none``, ``--backend
 sequential``), word timing, forced alignment (with no aligner checkpoint,
-and with one), speculative decoding, the other VADs and diarization; and
-the flag of a stage not ported yet (``--data_parallel on``) raises
-``NotImplementedError`` naming its ROADMAP.md item, before anything loads."""
+and with one), speculative decoding, the other VADs, diarization and
+``--data_parallel on``."""
 
 import dataclasses
 import json
@@ -199,7 +198,7 @@ WORDS = {"--word_timestamps True", "--vad_method none --word_timestamps True"}
 PORTED = WORDS | {"align", "--hallucination_silence_threshold 2", "--draft_model tiny",
                   "--draft_model self:1",
                   "--vad_method pyannote", "--vad_method hybrid", "--diarize",
-                  "--backend sequential --diarize"}
+                  "--backend sequential --diarize", "--data_parallel on"}
 # the diarization switches, unset: the weightless default models
 DIARIZE_SWITCHES = ("WHISPERX_TPU_SPEAKER_CKPT", "WHISPERX_TPU_SEGMENTATION_CKPT",
                     "WHISPERX_TPU_PLDA_CKPT", "WHISPERX_TPU_DIARIZE_CLUSTERING")
@@ -229,9 +228,8 @@ DIARIZE_SWITCHES = ("WHISPERX_TPU_SPEAKER_CKPT", "WHISPERX_TPU_SEGMENTATION_CKPT
     ids=lambda e: " ".join(e) or "align",
 )
 def test_not_ported_flags_raise(workdir, extra, monkeypatch, capsys):
-    """A flag of a stage that is not ported raises ``NotImplementedError``
-    naming its ROADMAP.md item before anything is written (``--data_parallel
-    on``). The ported cases run instead and write what the JAX CLI writes:
+    """No flag is refused any more (``--data_parallel on`` was the last,
+    until scale-out was ported). Every case writes what the JAX CLI writes:
     alignment with no aligner checkpoint (both skip it, with a message),
     word timing in the batched pipeline and in the seek loop, the
     hallucination-silence threshold with it, speculative decoding with a
@@ -241,16 +239,14 @@ def test_not_ported_flags_raise(workdir, extra, monkeypatch, capsys):
     pyannote and hybrid VADs without checkpoints (energy scores through
     Binarize; the energy fallback), and diarization with the weightless
     default (energy VAD windows, spectral embeddings, AHC) after the batched
-    pipeline and after the seek loop: every segment gets a speaker."""
+    pipeline and after the seek loop: every segment gets a speaker; and
+    ``--data_parallel on`` (the port's ``DataParallelPipeline`` over the
+    CPU against the JAX CLI's ``off``)."""
     case = " ".join(extra) or "align"
+    assert case in PORTED
     argv = _argv(workdir, "refused", "float32")
     if not extra:
         argv.remove("--no_align")
-    if case not in PORTED:
-        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md, Queue 1, item \d+"):
-            _run("torch", argv + list(extra))
-        assert not os.path.exists(workdir / "refused" / "clip.json")
-        return
     if case == "--hallucination_silence_threshold 2":
         extra = ("--word_timestamps", "True", *extra)  # it needs the words
     if case == "--draft_model tiny":
@@ -261,7 +257,9 @@ def test_not_ported_flags_raise(workdir, extra, monkeypatch, capsys):
         extra = (*extra, "--spec_gamma", "1")
     # JAX on one device: its data-parallel route over the suite's 8 virtual
     # CPU devices gives the same files ~10x slower
-    extra = (*extra, "--data_parallel", "off")
+    jax_extra = (*extra, "--data_parallel", "off")
+    if case != "--data_parallel on":
+        extra = jax_extra
     # no aligner checkpoint anywhere, and random weights refused
     monkeypatch.setenv("HOME", str(workdir / "home"))
     monkeypatch.delenv("WHISPERX_TPU_ALIGN_DIR", raising=False)
@@ -274,11 +272,12 @@ def test_not_ported_flags_raise(workdir, extra, monkeypatch, capsys):
     for pkg in ("jax", "torch"):
         dirs[pkg] = workdir / f"{pkg}_{out}"
         argv[argv.index("-o") + 1] = str(dirs[pkg])
+        flags = list(jax_extra if pkg == "jax" else extra)
         if case.startswith("--draft_model"):
             with pytest.warns(UserWarning, match="greedy-only; ignoring beam_size=5"):
-                _run(pkg, argv + list(extra))
+                _run(pkg, argv + flags)
         else:
-            _run(pkg, argv + list(extra))
+            _run(pkg, argv + flags)
         if case == "align":
             assert ">>Skipping alignment" in capsys.readouterr().out, pkg
     result = _same_outputs(dirs["jax"], dirs["torch"])
@@ -291,6 +290,38 @@ def test_not_ported_flags_raise(workdir, extra, monkeypatch, capsys):
         assert 0.0 <= w["start"] <= w["end"] <= 10.0
     if "--diarize" in extra:
         assert result["segments"] and all(s["speaker"].startswith("SPEAKER_") for s in result["segments"])
+
+
+def test_data_parallel_on_writes_the_same_files_as_off(workdir, capsys):
+    """``--data_parallel on --device cpu``: the pipeline is wrapped in
+    ``DataParallelPipeline`` over the CPU and writes ``off``'s files."""
+    from whisperx_tpu_torch.parallel import DataParallelPipeline
+
+    dirs = {}
+    for mode in ("off", "on"):
+        dirs[mode] = workdir / f"torch_dp_{mode}"
+        argv = _argv(workdir, f"torch_dp_{mode}", "float32", "--data_parallel", mode,
+                     "--batch_size", "2", "--verbose", "True")
+        pipe = _run("torch", argv)
+        assert isinstance(pipe, DataParallelPipeline) == (mode == "on")
+    assert ">>Data-parallel decode over 1 devices" in capsys.readouterr().out
+    assert _outputs(dirs["on"]) == _outputs(dirs["off"])
+
+
+def test_torchrun_variables_shard_the_files(workdir, monkeypatch, capsys):
+    """Under torchrun's ``RANK`` / ``WORLD_SIZE`` the CLI transcribes and
+    writes only its strided slice of the files: rank 1 of 2 owns the second
+    file and writes nothing for the first."""
+    from whisperx_tpu_torch.audio import save_wav
+
+    second = workdir / "clip_b.wav"
+    save_wav(str(second), synth_speech(3.0, seed=4))
+    monkeypatch.setenv("RANK", "1")
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    argv = _argv(workdir, "torch_rank1", "float32", "--data_parallel", "off", "-f", "json")
+    _run("torch", [argv[0], str(second), *argv[1:]])
+    assert ">>Host 1/2: 1 of 2 files" in capsys.readouterr().out
+    assert os.listdir(workdir / "torch_rank1") == ["clip_b.json"]
 
 
 @pytest.mark.parametrize(

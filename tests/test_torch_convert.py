@@ -546,3 +546,56 @@ def test_profiler_trace_writes_a_chrome_trace(where, tmp_path, monkeypatch):
     with open(path) as f:
         names = {e.get("name") for e in json.load(f)["traceEvents"]}
     assert "aten::mm" in names or "aten::matmul" in names, sorted(map(str, names))[:20]
+
+
+@pytest.mark.parametrize("writer", ["jax", "torch"])
+def test_package_level_names_read_the_other_packages_checkpoints(writer, tmp_path):
+    """``whisperx_tpu_torch.convert`` re-exports the checkpoint API, as
+    ``whisperx_tpu.convert`` does: a test-nano checkpoint written by either
+    package's ``save_checkpoint`` loads through the other's package-level
+    ``load_checkpoint`` with the same weights and config."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+    import whisperx_tpu.convert as jconvert
+    import whisperx_tpu_torch.convert as tconvert
+    from whisperx_tpu.convert.checkpoint import flatten_tree as jflatten
+    from whisperx_tpu.models.whisper.config import MODEL_DIMS
+    from whisperx_tpu.models.whisper.model import init_params
+    from whisperx_tpu_torch.convert.checkpoint import flatten_tree, params_from_numpy
+
+    dims = MODEL_DIMS["test-nano"]
+    config = {"name": "test-nano", "family": "whisper", "dims": dataclasses.asdict(dims)}
+    params = init_params(dims, jax.random.PRNGKey(0), dtype=jnp.float32)
+    want = {k: np.asarray(v) for k, v in jflatten(params).items()}
+    path = str(tmp_path / writer)
+    if writer == "jax":
+        jconvert.save_checkpoint(path, params, config)
+    else:
+        tconvert.save_checkpoint(path, params_from_numpy(want, dims, torch.float32, "cpu"), config)
+    assert tconvert.is_checkpoint_dir(path) and jconvert.is_checkpoint_dir(path)
+    model, got_config = tconvert.load_checkpoint(path, torch.float32, "cpu")
+    assert got_config == config
+    got = flatten_tree(model)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    tree, jconfig = jconvert.load_checkpoint(path)
+    assert jconfig == config
+    for k, v in jflatten(tree).items():
+        np.testing.assert_array_equal(v, want[k], err_msg=k)
+
+
+def test_load_checkpoint_builds_whisper_only(tmp_path):
+    """The port's ``load_checkpoint`` builds a ``Whisper`` (JAX's returns
+    any family's raw tree): another family's directory raises, naming it,
+    and ``read_checkpoint`` gives its flat weights and config."""
+    from whisperx_tpu_torch.convert import load_checkpoint, read_checkpoint, save_checkpoint
+
+    path = str(tmp_path / "w2v")
+    save_checkpoint(path, {"proj": {"w": np.ones((2, 3), np.float32)}}, {"family": "wav2vec2"})
+    with pytest.raises(ValueError, match="'wav2vec2' checkpoint"):
+        load_checkpoint(path, torch.float32, "cpu")
+    flat, config = read_checkpoint(path)
+    assert config == {"family": "wav2vec2"} and flat["proj/w"].shape == (2, 3)

@@ -133,6 +133,8 @@ def test_port_runs_without_jax(nano_ckpt):
         import whisperx_tpu_torch.convert.wav2vec2_hf
         import whisperx_tpu_torch.convert.wespeaker
         import whisperx_tpu_torch.convert.whisper_hf
+        import whisperx_tpu_torch.parallel
+        from whisperx_tpu_torch.convert import load_checkpoint, save_checkpoint
         # no module of the port imports pandas (alignment's optional nltk
         # may, when it runs)
         assert not [m for m in sys.modules if m == "pandas" or m.startswith("pandas.")]

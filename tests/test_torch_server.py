@@ -898,14 +898,23 @@ def test_help_shows_jax_flags_with_cuda_default(capsys):
 
 @pytest.mark.parametrize("argv", [["--data_parallel", "on"], ["--n_model", "2"]])
 def test_data_parallel_raises_before_loading(argv, monkeypatch):
+    """Scale-out is ported: the parser keeps both flags and nothing is
+    refused before the model loads (the load is stubbed to stop there)."""
     import whisperx_tpu_torch.asr as asr
-    from whisperx_tpu_torch.serve.__main__ import main
+    from whisperx_tpu_torch.serve.__main__ import build_parser, main
 
-    def no_load(*a, **k):  # pragma: no cover - the fault under test
-        raise AssertionError("the model was loaded before the check")
+    class Loading(Exception):
+        pass
 
-    monkeypatch.setattr(asr, "load_model", no_load)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 13"):
+    def stop(*a, **k):
+        raise Loading
+
+    args = build_parser().parse_args(argv)
+    assert (args.data_parallel, args.n_model) == (
+        ("on", 1) if argv[0] == "--data_parallel" else ("auto", 2)
+    )
+    monkeypatch.setattr(asr, "load_model", stop)
+    with pytest.raises(Loading):
         main(["--device", "cpu", *argv])
 
 

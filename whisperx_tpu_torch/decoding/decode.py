@@ -11,14 +11,24 @@ self-attention cache sized to the decode budget, and finished rows that keep
 The JAX package runs the loop as one ``lax.while_loop`` on the device. Here
 it is a Python loop that reads ``finished.all()`` back once per step — one
 host sync per token. Capturing the step in a CUDA graph is a later change.
+
+With a mesh active (``parallel.use_mesh``) whose data axis divides the
+batch (after ``best_of`` tiling), ``decode_dispatch`` cuts the rows into one
+contiguous slice per data row and decodes each on its row's model replica,
+on a worker thread of its own (JAX's ``_shard_data``); a sampled split
+reads its rows of the whole batch's draws (``_SharedNoise``), so it samples
+the unsplit decode's tokens.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
+import threading
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple, Union
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -28,6 +38,7 @@ from whisperx_tpu_torch.models.whisper.model import (
     KVCache,
     decoder_forward,
     encoder_forward,
+    new_self_cache,
     precompute_cross_kv,
     quantize_kv,
 )
@@ -115,18 +126,9 @@ def init_kv_cache_like(model, batch: int, cfg: _StaticConfig, n_init: int = 0):
     """Self-attention cache sized to the decode budget (prefix + sample_len,
     rounded up to 64), not the full n_text_ctx — every step reads the whole
     cache, so unused slots cost memory bandwidth."""
-    dec = model.decoder
-    d = dec.tok_emb.shape[1]
-    h = cfg.n_head
     budget = n_init + cfg.sample_len + 1
     cache_len = min(cfg.n_text_ctx, -(-budget // 64) * 64)
-    kw = dict(dtype=dec.tok_emb.dtype, device=dec.tok_emb.device)
-    shape = (batch, cache_len, h, d // h)
-    n_layer = len(dec.blocks)
-    return (
-        [torch.zeros(shape, **kw) for _ in range(n_layer)],
-        [torch.zeros(shape, **kw) for _ in range(n_layer)],
-    )
+    return new_self_cache(model.decoder, batch, cache_len, cfg.n_head)
 
 
 @torch.inference_mode()
@@ -138,12 +140,18 @@ def _decode(
     cfg: _StaticConfig,
     generator: Optional[torch.Generator],
     audio_is_features: bool,
+    noise: Optional[Callable[[int, tuple], torch.Tensor]] = None,
 ):
     """Full batched decode. Returns (tokens [B, sample_len], lengths [B],
-    sum_logprobs [B], no_speech_probs [B], audio_features, steps run)."""
+    sum_logprobs [B], no_speech_probs [B], audio_features, steps run).
+    ``noise(step, shape)``: the uniform draw of a sampled step, by default
+    from ``generator`` (a data-parallel slice reads its rows of the whole
+    batch's draw instead, ``_SharedNoise``)."""
     b = audio_in.shape[0]
     n_init = initial_tokens.shape[1]
     device = audio_in.device
+    if noise is None:
+        noise = lambda step, shape: torch.rand(shape, generator=generator, device=device)
 
     if audio_is_features:
         audio_features = audio_in
@@ -175,7 +183,7 @@ def _decode(
         else:
             # Gumbel-max draw from softmax(logits / T): tokens the filters
             # set to -inf are never drawn
-            u = torch.rand(logits.shape, generator=generator, device=device)
+            u = noise(n_sampled, logits.shape)
             gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
             sampled = torch.argmax(logits / temperature + gumbel, dim=-1)
         logprobs = torch.log_softmax(logits, dim=-1)
@@ -198,22 +206,94 @@ def _decode(
     return tokens_buf, lengths, sum_logprobs, no_speech_probs, audio_features, n_sampled
 
 
+class _SharedNoise:
+    """The uniform draws of one sampled decode split over data-parallel
+    replicas: step t's draw is the whole batch's [B, V], made from the
+    generator in step order as the unsplit decode makes it, and each slice
+    reads its own rows, so the split samples the unsplit decode's tokens.
+    A draw is dropped once every slice still running has read it."""
+
+    def __init__(self, generator, b: int, device, n_slices: int):
+        self.generator, self.b, self.device = generator, b, device
+        self.lock = threading.Lock()
+        self.draws = {}  # step → [B, V]
+        self.made = 0  # steps drawn so far
+        self.next_step = [0] * n_slices  # per slice; None once it finished
+
+    def rows(self, j: int, lo: int, hi: int, step: int, shape: tuple) -> torch.Tensor:
+        with self.lock:
+            while self.made <= step:
+                self.draws[self.made] = torch.rand(
+                    (self.b, shape[-1]), generator=self.generator, device=self.device
+                )
+                self.made += 1
+            out = self.draws[step][lo:hi]
+            self.next_step[j] = step + 1
+            self._trim()
+        return out
+
+    def finish(self, j: int) -> None:
+        with self.lock:
+            self.next_step[j] = None
+            self._trim()
+
+    def _trim(self) -> None:
+        live = [t for t in self.next_step if t is not None]
+        low = min(live) if live else self.made
+        for t in [t for t in self.draws if t < low]:
+            del self.draws[t]
+
+
+def _data_replicas(model, rows: int):
+    """The model replicas of the active mesh's data rows when its data axis
+    (> 1) divides ``rows``, else None: the decode then runs whole, as JAX's
+    ``_shard_data`` leaves it without a mesh or on a batch the axis does
+    not divide."""
+    from whisperx_tpu_torch.parallel.sharding import DATA_AXIS, get_mesh
+
+    mesh = get_mesh()
+    if mesh is None or mesh.shape[DATA_AXIS] == 1 or rows % mesh.shape[DATA_AXIS]:
+        return None
+    if getattr(model, "_dp_mesh", None) != mesh:
+        raise ValueError(
+            "the active mesh splits this decode, but the model is not placed on "
+            "it: place it with parallel.shard_params_tp(model, mesh)"
+        )
+    return model._dp_replicas
+
+
+def _split_rows(replicas, tensors: Sequence[torch.Tensor], run, device) -> tuple:
+    """Cut the rows of ``tensors`` into one contiguous slice per replica and
+    call ``run(j, replica, *slices)`` for each on a worker thread of its own,
+    the slices on the replica's device and that device current. Returns the
+    outputs joined in row order on ``device``: tensors concatenated, step
+    counts by their maximum."""
+    n = len(replicas)
+    per = tensors[0].shape[0] // n
+
+    def one(j):
+        rep = replicas[j]
+        dev = rep.device
+        scope = torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+        with scope:
+            return run(j, rep, *(t[j * per : (j + 1) * per].to(dev) for t in tensors))
+
+    with ThreadPoolExecutor(max_workers=n) as pool:
+        outs = list(pool.map(one, range(n)))
+    return tuple(
+        torch.cat([o[i].to(device) for o in outs]) if torch.is_tensor(outs[0][i])
+        else max(o[i] for o in outs)
+        for i in range(len(outs[0]))
+    )
+
+
 @torch.inference_mode()
 def _detect_language_features(model, audio_features, n_head, sot, lang_tokens):
     b = audio_features.shape[0]
     dec = model.decoder
     cross_k, cross_v = precompute_cross_kv(dec, audio_features, n_head)
-    d = dec.tok_emb.shape[1]
-    kw = dict(dtype=dec.tok_emb.dtype, device=dec.tok_emb.device)
     # one-token forward: an 8-slot self cache suffices (the mask is positional)
-    shape = (b, 8, n_head, d // n_head)
-    n_layer = len(dec.blocks)
-    cache = KVCache(
-        [torch.zeros(shape, **kw) for _ in range(n_layer)],
-        [torch.zeros(shape, **kw) for _ in range(n_layer)],
-        cross_k,
-        cross_v,
-    )
+    cache = KVCache(*new_self_cache(dec, b, 8, n_head), cross_k, cross_v)
     tokens = torch.full((b, 1), sot, dtype=torch.int64, device=audio_features.device)
     logits = decoder_forward(dec, tokens, cache, 0, n_head)[:, 0].float()
     mask = torch.full((logits.shape[-1],), float("-inf"), device=logits.device)
@@ -413,15 +493,22 @@ def decode_dispatch(
         # upstream: patience multiplies how many finished sequences are
         # collected before the search stops (patience=1 → beam_size)
         max_candidates = max(k, round(k * (options.patience or 1.0)))
-        beam_device = _beam_decode(
-            model,
-            audio_in,
-            torch.tensor([initial] * b, dtype=torch.int64, device=mel.device),
-            cfg,
-            k,
-            max_candidates,
-            audio_is_features=shared_features is not None,
-        )
+        initial_arr = torch.tensor([initial] * b, dtype=torch.int64, device=mel.device)
+        replicas = _data_replicas(model, b)
+        if replicas is None:
+            beam_device = _beam_decode(
+                model, audio_in, initial_arr, cfg, k, max_candidates,
+                audio_is_features=shared_features is not None,
+            )
+        else:
+            beam_device = _split_rows(
+                replicas, (audio_in, initial_arr),
+                lambda j, rep, audio, init: _beam_decode(
+                    rep, audio, init, cfg, k, max_candidates,
+                    audio_is_features=shared_features is not None,
+                ),
+                mel.device,
+            )
         return {**handle, "beam_device": beam_device, "steps": beam_device[6]}
 
     # best_of: at temperature > 0, n independent candidates per row (the
@@ -433,15 +520,31 @@ def decode_dispatch(
     initial_arr = torch.tensor(
         [initial] * (b * n_cand), dtype=torch.int64, device=mel.device
     )
-    tokens_buf, lengths, sum_logprobs, no_speech_probs, audio_features, steps = _decode(
-        model,
-        audio_in,
-        initial_arr,
-        max(options.temperature, 1e-6),
-        cfg,
-        generator,
-        audio_is_features=shared_features is not None,
-    )
+    temperature = max(options.temperature, 1e-6)
+    replicas = _data_replicas(model, b * n_cand)
+    if replicas is None:
+        out = _decode(
+            model, audio_in, initial_arr, temperature, cfg, generator,
+            audio_is_features=shared_features is not None,
+        )
+    else:
+        shared = _SharedNoise(generator, b * n_cand, mel.device, len(replicas))
+        per = b * n_cand // len(replicas)
+
+        def run(j, rep, audio, init):
+            try:
+                return _decode(
+                    rep, audio, init, temperature, cfg, None,
+                    audio_is_features=shared_features is not None,
+                    noise=lambda step, shape: shared.rows(
+                        j, j * per, (j + 1) * per, step, shape
+                    ).to(audio.device),
+                )
+            finally:
+                shared.finish(j)
+
+        out = _split_rows(replicas, (audio_in, initial_arr), run, mel.device)
+    tokens_buf, lengths, sum_logprobs, no_speech_probs, audio_features, steps = out
     return {
         **handle,
         "device": (tokens_buf, lengths, sum_logprobs, no_speech_probs, audio_features),

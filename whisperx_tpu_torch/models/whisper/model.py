@@ -20,7 +20,12 @@ it step by step so that f32 runs agree with the JAX package to rounding:
     over the int8 cache then goes through K3
     (``ops/cross_attention_decode.py``);
   - a weight-only quantized linear (``quant.QuantizedLinear``) goes through
-    ``quant_linear_apply``: K4 for int8 on CUDA (``ops/quant_matmul.py``).
+    ``quant_linear_apply``: K4 for int8 on CUDA (``ops/quant_matmul.py``);
+  - every forward also runs on a tensor-parallel model
+    (``parallel.shard_params_tp``): a block placed over several devices
+    carries a ``TPLayout``, its split linears are ``SplitLinear``s, and its
+    caches ``HeadShards``; an unplaced block is the one-shard case of the
+    same code.
 """
 
 from __future__ import annotations
@@ -66,6 +71,47 @@ class Linear(nn.Module):
             self.register_parameter("b", None)
 
 
+class SplitLinear(nn.Module):
+    """A linear split over the devices of one model-parallel row
+    (``parallel.shard_params_tp``). Column-split (``rows=False``): each
+    part is a ``Linear`` of a slice of the output columns and their bias,
+    on its shard's device. Row-split (``rows=True``): each part holds a
+    slice of the input rows, without bias; ``b`` is added once, on the lead
+    device, after the partial products are summed."""
+
+    def __init__(self, parts: Sequence[Linear], b: Optional[torch.Tensor], *, rows: bool):
+        super().__init__()
+        self.parts = nn.ModuleList(parts)
+        self.rows = rows
+        if b is None:
+            self.register_parameter("b", None)
+        else:
+            self.b = nn.Parameter(b, requires_grad=False)
+
+
+@dataclass(frozen=True)
+class TPLayout:
+    """Where a tensor-parallel block's work runs: ``heads`` holds
+    (device, first head, end) per shard with at least one head (whole
+    heads, the first shards taking one more when they do not divide),
+    ``hidden`` (device, first column, end) of the MLP's hidden width per
+    shard. The lead device, shard 0's, holds the residual stream, the
+    layer norms and every linear that is not split."""
+
+    heads: Tuple[Tuple[torch.device, int, int], ...]
+    hidden: Tuple[Tuple[torch.device, int, int], ...]
+
+
+class HeadShards(list):
+    """A cache entry of a tensor-parallel decoder: one tensor (or
+    ``QuantizedKV``) per shard of ``TPLayout.heads``, each [B, T, H_s, Dh]
+    on its shard's device. ``index_select`` reorders every shard's rows, as
+    the beam search does to a plain tensor."""
+
+    def index_select(self, dim: int, index: torch.Tensor) -> "HeadShards":
+        return HeadShards(x.index_select(dim, index.to(x.device)) for x in self)
+
+
 class LayerNorm(nn.Module):
     def __init__(self, d: int, *, dtype, device):
         super().__init__()
@@ -104,6 +150,7 @@ class ResidualAttentionBlock(nn.Module):
         if cross:
             self.cross_attn = MultiHeadAttention(d, **kw)
             self.cross_attn_ln = LayerNorm(d, **kw)
+        self.tp: Optional[TPLayout] = None  # set by parallel.shard_params_tp
 
 
 class AudioEncoder(nn.Module):
@@ -277,6 +324,55 @@ def linear(p: Union[Linear, QuantizedLinear], x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def _column(p, h: torch.Tensor, shards, unit: int) -> List[torch.Tensor]:
+    """A column-split or whole linear's output, one tensor per shard
+    (device, a, b) of ``shards``: columns [a·unit, b·unit) on that device.
+    A whole linear (an unplaced block's, or a ``QuantizedLinear``, which is
+    never split) runs once on the lead device and its output is sliced."""
+    if isinstance(p, SplitLinear):
+        return [linear(part, h.to(dev)) for part, (dev, _, _) in zip(p.parts, shards)]
+    y = linear(p, h)
+    if len(shards) == 1:
+        return [y]
+    return [y[..., a * unit : b * unit].to(dev) for dev, a, b in shards]
+
+
+def _row(p, xs: List[torch.Tensor]) -> torch.Tensor:
+    """A row-split or whole linear over the shards' inputs ``xs``, on the
+    lead device (``xs[0]``'s). A split one is the in-process all-reduce:
+    the shards' partial products in f32, summed on the lead device, rounded
+    once to x's dtype, then the bias — ``linear``'s rounding. A whole one
+    takes the shards' inputs concatenated."""
+    lead = xs[0].device
+    if isinstance(p, SplitLinear):
+        acc = None
+        for x, part in zip(xs, p.parts):
+            y = _dot_f32(x, part.w).to(lead)
+            acc = y if acc is None else acc + y
+        y = acc.to(xs[0].dtype)
+        return y if p.b is None else y + p.b
+    x = xs[0] if len(xs) == 1 else torch.cat([x.to(lead) for x in xs], dim=-1)
+    return linear(p, x)
+
+
+def _layout(blk: "ResidualAttentionBlock", n_head: int, x: torch.Tensor) -> TPLayout:
+    """The block's ``TPLayout``, or the single shard of an unplaced block
+    (every head and the whole hidden width on x's device)."""
+    if blk.tp is not None:
+        return blk.tp
+    return TPLayout(((x.device, 0, n_head),), ((x.device, 0, 4 * x.shape[-1]),))
+
+
+def _part(entry, s: int):
+    """Shard ``s`` of a cache entry (a plain tensor is the one shard)."""
+    return entry[s] if isinstance(entry, HeadShards) else entry
+
+
+def _mlp(p: "ResidualAttentionBlock", h: torch.Tensor, lay: TPLayout) -> torch.Tensor:
+    hs = _column(p.mlp1, h, lay.hidden, 1)
+    return _row(p.mlp2, [_gelu(y) for y in hs])
+
+
 def _gelu(x: torch.Tensor) -> torch.Tensor:
     # jax.nn.gelu defaults to the tanh approximation; torch's to exact erf
     return F.gelu(x, approximate="tanh")
@@ -360,15 +456,18 @@ def encoder_forward(
 def _encoder_block(
     p: ResidualAttentionBlock, x: torch.Tensor, n_head: int
 ) -> torch.Tensor:
+    """One encoder block; a tensor-parallel one runs K1 once per shard, on
+    its heads."""
+    lay = _layout(p, n_head, x)
+    dh = x.shape[-1] // n_head
     h = layer_norm(p.attn_ln, x)
-    q = _split_heads(linear(p.attn.query, h), n_head)
-    k = _split_heads(linear(p.attn.key, h), n_head)
-    v = _split_heads(linear(p.attn.value, h), n_head)
-    attn = flash_attention(q, k, v)
-    x = x + linear(p.attn.out, _merge_heads(attn))
-    h = layer_norm(p.mlp_ln, x)
-    h = _gelu(linear(p.mlp1, h))
-    return x + linear(p.mlp2, h)
+    qs, ks, vs = (_column(lin, h, lay.heads, dh) for lin in (p.attn.query, p.attn.key, p.attn.value))
+    attn = [
+        _merge_heads(flash_attention(*(_split_heads(t[s], h1 - h0) for t in (qs, ks, vs))))
+        for s, (_, h0, h1) in enumerate(lay.heads)
+    ]
+    x = x + _row(p.attn.out, attn)
+    return x + _mlp(p, layer_norm(p.mlp_ln, x), lay)
 
 
 # ---------------------------------------------------------------------------
@@ -386,8 +485,11 @@ class QuantizedKV(NamedTuple):
     scale: torch.Tensor  # [B, 1, H, D] f32
 
 
-def quantize_kv(x: torch.Tensor) -> QuantizedKV:
-    """[B, T, H, D] → per-(b, h, d)-channel int8 over the T axis."""
+def quantize_kv(x: Union[torch.Tensor, HeadShards]) -> Union[QuantizedKV, HeadShards]:
+    """[B, T, H, D] → per-(b, h, d)-channel int8 over the T axis; each
+    shard of a ``HeadShards`` on its own (the scales are per head)."""
+    if isinstance(x, HeadShards):
+        return HeadShards(quantize_kv(part) for part in x)
     xf = x.float()
     amax = xf.abs().amax(dim=1, keepdim=True)
     scale = torch.clamp(amax / 127.0, min=1e-10)
@@ -408,23 +510,48 @@ class KVCache:
     cache is one allocation for the whole decode.
     cross_k/cross_v: [B, n_audio_ctx, H, Dh] (or ``QuantizedKV``), computed
     once per segment and read-only thereafter.
+    A tensor-parallel layer's entries are ``HeadShards``: each shard's
+    heads on its own device.
     """
 
-    self_k: List[torch.Tensor]
-    self_v: List[torch.Tensor]
-    cross_k: List[CrossKV]
-    cross_v: List[CrossKV]
+    self_k: List[Union[torch.Tensor, HeadShards]]
+    self_v: List[Union[torch.Tensor, HeadShards]]
+    cross_k: List[Union[CrossKV, HeadShards]]
+    cross_v: List[Union[CrossKV, HeadShards]]
+
+
+def new_self_cache(dec: TextDecoder, batch: int, cache_len: int, n_head: int):
+    """Zeroed self-attention K and V caches, one entry per layer:
+    [B, cache_len, H, Dh] in the decoder's dtype on its device, or, for a
+    tensor-parallel block, a ``HeadShards`` of its shards' heads."""
+    d = dec.tok_emb.shape[1]
+    kw = dict(dtype=dec.tok_emb.dtype)
+
+    def entry(blk):
+        if blk.tp is None:
+            return torch.zeros((batch, cache_len, n_head, d // n_head), device=dec.tok_emb.device, **kw)
+        return HeadShards(
+            torch.zeros((batch, cache_len, h1 - h0, d // n_head), device=dev, **kw)
+            for dev, h0, h1 in blk.tp.heads
+        )
+
+    return [entry(blk) for blk in dec.blocks], [entry(blk) for blk in dec.blocks]
 
 
 @reference_matmul()
 def precompute_cross_kv(
     dec: TextDecoder, audio_features: torch.Tensor, n_head: int
-) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
-    """Per-layer cross-attention K/V lists of [B, 1500, H, Dh]."""
+) -> Tuple[list, list]:
+    """Per-layer cross-attention K/V lists of [B, 1500, H, Dh] (a
+    tensor-parallel layer's: ``HeadShards``)."""
+    dh = audio_features.shape[-1] // n_head
     ks, vs = [], []
     for blk in dec.blocks:
-        ks.append(_split_heads(linear(blk.cross_attn.key, audio_features), n_head))
-        vs.append(_split_heads(linear(blk.cross_attn.value, audio_features), n_head))
+        lay = _layout(blk, n_head, audio_features)
+        for lin, out in ((blk.cross_attn.key, ks), (blk.cross_attn.value, vs)):
+            ys = _column(lin, audio_features, lay.heads, dh)
+            parts = [_split_heads(y, h1 - h0) for y, (_, h0, h1) in zip(ys, lay.heads)]
+            out.append(parts[0] if blk.tp is None else HeadShards(parts))
     return ks, vs
 
 
@@ -487,8 +614,9 @@ def decoder_forward(
     row and a write that would overhang the cache starts earlier."""
     assert not (capture_cross_qk and beam_groups > 1), "the capture is per row"
     b, t_new = tokens.shape
-    cache_len = cache.self_k[0].shape[1]
+    cache_len = _part(cache.self_k[0], 0).shape[1]
     device = tokens.device
+    dh = dec.tok_emb.shape[1] // n_head
     k_pos = torch.arange(cache_len, device=device)
 
     if torch.is_tensor(offset):
@@ -515,43 +643,62 @@ def decoder_forward(
         t_new == 1 and beam_groups == 1 and not capture_cross_qk
         and use_cross_decode_kernel(device)
     )
-    captured = {}  # (layer, head) → [B, T_new, 1500], or layer → [B, H, T_new, 1500]
+    # (layer, head) → [B, T_new, 1500], or layer → per-shard [B, H_s, T_new, 1500]
+    captured = {}
 
     for i, blk in enumerate(dec.blocks):
+        lay = _layout(blk, n_head, x)
         h = layer_norm(blk.attn_ln, x)
-        q = _split_heads(linear(blk.attn.query, h), n_head)
-        k = _split_heads(linear(blk.attn.key, h), n_head)
-        v = _split_heads(linear(blk.attn.value, h), n_head)
-        cache.self_k[i][write_at] = k
-        cache.self_v[i][write_at] = v
-        attn = qkv_attention(q, cache.self_k[i], cache.self_v[i], mask=self_mask)
-        x = x + linear(blk.attn.out, _merge_heads(attn))
+        qs, ks, vs = (
+            _column(lin, h, lay.heads, dh) for lin in (blk.attn.query, blk.attn.key, blk.attn.value)
+        )
+        attn = []
+        for s, (dev, h0, h1) in enumerate(lay.heads):
+            sk, sv = _part(cache.self_k[i], s), _part(cache.self_v[i], s)
+            at = tuple(w.to(dev) if torch.is_tensor(w) else w for w in write_at)
+            sk[at] = _split_heads(ks[s], h1 - h0)
+            sv[at] = _split_heads(vs[s], h1 - h0)
+            a = qkv_attention(_split_heads(qs[s], h1 - h0), sk, sv, mask=self_mask.to(dev))
+            attn.append(_merge_heads(a))
+        x = x + _row(blk.attn.out, attn)
 
         h = layer_norm(blk.cross_attn_ln, x)
-        cq = _split_heads(linear(blk.cross_attn.query, h), n_head)
-        if capture_cross_qk:
-            cattn, qk = qkv_attention(
-                cq, cache.cross_k[i], cache.cross_v[i], return_weights=True
-            )
-            if capture_heads is None:
-                captured[i] = qk
+        cqs = _column(blk.cross_attn.query, h, lay.heads, dh)
+        cattn = []
+        for s, (dev, h0, h1) in enumerate(lay.heads):
+            cq = _split_heads(cqs[s], h1 - h0)
+            ck, cv = _part(cache.cross_k[i], s), _part(cache.cross_v[i], s)
+            if capture_cross_qk:
+                a, qk = qkv_attention(cq, ck, cv, return_weights=True)
+                if capture_heads is None:
+                    captured.setdefault(i, []).append(qk)
+                else:
+                    captured.update(
+                        ((i, hd), qk[:, hd - h0])
+                        for layer, hd in capture_heads
+                        if layer == i and h0 <= hd < h1
+                    )
             else:
-                captured.update(((i, hd), qk[:, hd]) for layer, hd in capture_heads if layer == i)
-        else:
-            if beam_groups > 1:  # fold the beams into the query axis
-                cq = cq.reshape(b // beam_groups, beam_groups * t_new, n_head, -1)
-            cattn = _cross_attention(cq, cache.cross_k[i], cache.cross_v[i], use_k3)
-            if beam_groups > 1:  # unfold back to per-beam rows
-                cattn = cattn.reshape(b, t_new, n_head, -1)
-        x = x + linear(blk.cross_attn.out, _merge_heads(cattn))
+                if beam_groups > 1:  # fold the beams into the query axis
+                    cq = cq.reshape(b // beam_groups, beam_groups * t_new, h1 - h0, -1)
+                a = _cross_attention(cq, ck, cv, use_k3)
+                if beam_groups > 1:  # unfold back to per-beam rows
+                    a = a.reshape(b, t_new, h1 - h0, -1)
+            cattn.append(_merge_heads(a))
+        x = x + _row(blk.cross_attn.out, cattn)
 
         h = layer_norm(blk.mlp_ln, x)
-        h = _gelu(linear(blk.mlp1, h))
-        x = x + linear(blk.mlp2, h)
+        x = x + _mlp(blk, h, lay)
 
     x = layer_norm(dec.ln, x)
     logits = _dot_f32(x, dec.tok_emb.T)
     if not capture_cross_qk:
         return logits
-    keys = range(len(dec.blocks)) if capture_heads is None else map(tuple, capture_heads)
-    return logits, torch.stack([captured[k] for k in keys])
+    if capture_heads is None:  # every head, in head order across the shards
+        planes = [
+            qks[0] if len(qks) == 1 else torch.cat([q.to(device) for q in qks], dim=1)
+            for qks in (captured[i] for i in range(len(dec.blocks)))
+        ]
+    else:
+        planes = [captured[tuple(k)].to(device) for k in capture_heads]
+    return logits, torch.stack(planes)

@@ -6,18 +6,13 @@ Usage:
         http://127.0.0.1:9090/v1/audio/transcriptions | jq .
 
 The flags of ``python -m whisperx_tpu.serve``, with ``--device`` defaulting
-to ``cuda`` (``cpu`` for smoke tests). ``--data_parallel on`` and
-``--n_model`` above 1 are not ported yet: they raise ``NotImplementedError``
-naming their ROADMAP.md item before anything is loaded.
+to ``cuda`` (``cpu`` for smoke tests). ``--data_parallel on`` (or ``auto``
+on CUDA with more than one GPU visible) serves through
+``parallel.DataParallelPipeline`` over the devices of ``--device``, each
+data row's replica split ``--n_model`` ways.
 """
 
 import argparse
-
-# (flag, predicate on the parsed flags): data parallelism, not ported yet
-_NOT_PORTED = (
-    ("--data_parallel on", lambda a: a.data_parallel == "on"),
-    ("--n_model > 1", lambda a: a.n_model > 1),
-)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -49,20 +44,14 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--diarize_model", type=str, default=None, help="diarization checkpoint/name for per-request ?diarize=true")
     parser.add_argument("--draft_model", type=str, default=None, help="enable speculative decoding: draft checkpoint/name or 'self:N'")
     parser.add_argument("--spec_gamma", type=int, default=4, help="speculative draft length per verify step")
-    parser.add_argument("--data_parallel", type=str, default="auto", choices=["auto", "on", "off"], help="shard decode batches over all local devices (auto: when >1 device; not ported yet: 'on' raises)")
-    parser.add_argument("--n_model", type=int, default=1, help="tensor-parallel width within the device mesh (not ported yet: > 1 raises)")
+    parser.add_argument("--data_parallel", type=str, default="auto", choices=["auto", "on", "off"], help="shard decode batches over all local devices (auto: when >1 device)")
+    parser.add_argument("--n_model", type=int, default=1, help="tensor-parallel width within the device mesh")
     # fmt: on
     return parser
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    for flag, asked in _NOT_PORTED:
-        if asked(args):
-            raise NotImplementedError(
-                f"{flag} is not ported yet (data parallelism: ROADMAP.md, "
-                "Queue 1, item 13)"
-            )
 
     from whisperx_tpu_torch.asr import load_model
     from whisperx_tpu_torch.serve.batching import BatchConfig
@@ -92,15 +81,17 @@ def main(argv=None):
             ),
         },
     )
-    if pipeline.device.type == "cuda" and args.data_parallel == "auto":
-        import torch
+    from whisperx_tpu_torch.parallel import DataParallelPipeline, make_mesh, maybe_data_parallel
 
-        if torch.cuda.device_count() > 1:
-            print(
-                f"serving on {pipeline.device} only: data parallelism over the "
-                f"{torch.cuda.device_count()} visible GPUs waits for ROADMAP.md, "
-                "Queue 1, item 13"
-            )
+    if args.data_parallel == "on" or (args.data_parallel == "auto" and maybe_data_parallel(pipeline)):
+        # every visible GPU for --device cuda, else the one device named
+        devices = None if args.device == "cuda" else [pipeline.device]
+        mesh = make_mesh(n_model=args.n_model, devices=devices)
+        pipeline = DataParallelPipeline(pipeline, mesh=mesh)
+        print(
+            f"data-parallel serving over {mesh.shape['data'] * args.n_model} devices "
+            f"(data={mesh.shape['data']} x model={args.n_model})"
+        )
 
     server = TranscriptionServer(
         pipeline,

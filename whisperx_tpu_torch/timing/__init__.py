@@ -37,6 +37,7 @@ from whisperx_tpu_torch.models.whisper.model import (
     KVCache,
     decoder_forward,
     encoder_forward,
+    new_self_cache,
     precompute_cross_kv,
 )
 from whisperx_tpu_torch.timing.dtw import dtw, median_filter
@@ -80,12 +81,7 @@ def _capture_cross_qk(model, tokens: torch.Tensor, mels: torch.Tensor, eot: int)
     b = tokens.shape[0]
     feats = encoder_forward(model.encoder, mels.to(model.dtype), dims.n_audio_head)
     ck, cv = precompute_cross_kv(model.decoder, feats, dims.n_text_head)
-    shape = (b, dims.n_text_ctx, dims.n_text_head, dims.n_text_state // dims.n_text_head)
-    cache = KVCache(
-        [feats.new_zeros(shape) for _ in range(dims.n_text_layer)],
-        [feats.new_zeros(shape) for _ in range(dims.n_text_layer)],
-        ck, cv,
-    )
+    cache = KVCache(*new_self_cache(model.decoder, b, dims.n_text_ctx, dims.n_text_head), ck, cv)
     logits, sel = decoder_forward(
         model.decoder, tokens, cache, 0, dims.n_text_head,
         capture_cross_qk=True, capture_heads=model.alignment_heads,

@@ -2,9 +2,12 @@
 diarization and speaker assignment, then the writers.
 
 Counterpart of ``whisperx_tpu/transcribe.py`` (reference
-whisperx/transcribe.py:17-250). ``--data_parallel on`` is not ported yet: it
-raises ``NotImplementedError`` naming the ROADMAP.md item that brings it,
-before anything is loaded.
+whisperx/transcribe.py:17-250). ``--data_parallel on`` wraps the pipeline in
+``parallel.DataParallelPipeline`` over the devices of ``--device`` (every
+visible GPU for ``cuda``); ``auto`` does so on CUDA when more than one GPU is
+visible. Under several processes (torchrun's ``RANK`` / ``WORLD_SIZE``, or a
+joined process group) each transcribes and writes its strided slice of the
+files (``parallel.shard_files``).
 """
 
 from __future__ import annotations
@@ -28,19 +31,6 @@ _ASR_FLAG_FIELDS = (
 )
 _ASR_FLAG_RENAMES = {"logprob_threshold": "log_prob_threshold"}
 _SUBTITLE_FLAGS = ("highlight_words", "max_line_count", "max_line_width")
-
-# (flag, predicate on the parsed flags, what brings it)
-_NOT_PORTED = (
-    ("--data_parallel on", lambda a: a["data_parallel"] == "on",
-     "data parallelism: ROADMAP.md, Queue 1, item 13"),
-)
-
-
-def _check_ported(args: dict) -> None:
-    for flag, asked, later in _NOT_PORTED:
-        if asked(args):
-            raise NotImplementedError(f"{flag} is not ported yet ({later})")
-
 
 def _canonical_language(code, model_name: str):
     """Lowercase + alias-resolve a user language code; apply .en override."""
@@ -75,11 +65,12 @@ def transcribe_task(args: dict, parser: argparse.ArgumentParser):
     """Run the CLI's phases on parsed flags (``vars(parser.parse_args())``)
     and return the pipeline it built, so an in-process caller can inspect
     the model and its kernels' launch counts."""
-    _check_ported(args)
     from whisperx_tpu_torch.alignment import align, load_align_model
     from whisperx_tpu_torch.asr import load_model
     from whisperx_tpu_torch.audio import load_audio
     from whisperx_tpu_torch.diarize import DiarizationPipeline, assign_word_speakers
+    from whisperx_tpu_torch.parallel import DataParallelPipeline, make_mesh, maybe_data_parallel
+    from whisperx_tpu_torch.parallel.multihost import process_index_count, shard_files
 
     take = args.pop  # every consumed flag leaves `args`; the remainder
     # (language + subtitle flags) is validated below
@@ -106,7 +97,7 @@ def transcribe_task(args: dict, parser: argparse.ArgumentParser):
     no_align = no_align or task == "translate"  # translations can't align
     return_char_alignments = take("return_char_alignments")
     hf_token = take("hf_token")
-    take("data_parallel", None)  # "on" is refused above
+    data_parallel = take("data_parallel")
     vad_options = {
         "chunk_size": take("chunk_size"),
         "vad_onset": take("vad_onset"),
@@ -170,9 +161,23 @@ def transcribe_task(args: dict, parser: argparse.ArgumentParser):
         )
     chunk_size = vad_options["chunk_size"]
 
+    if data_parallel == "on" or (data_parallel == "auto" and maybe_data_parallel(model)):
+        # every visible GPU for --device cuda, else the one device named
+        mesh = make_mesh(devices=None if device == "cuda" else [model.device])
+        model = DataParallelPipeline(model, mesh=mesh)
+        if verbose:
+            print(f">>Data-parallel decode over {mesh.shape['data']} devices")
+
     # duplicates (shell-glob overlap, scripted lists) would transcribe
     # twice and write the same output files twice — process each once
     audio_paths = list(dict.fromkeys(take("audio")))
+    pid, n_proc = process_index_count()
+    if n_proc > 1:
+        # several processes: whole files shard over them, each transcribes
+        # and writes its own slice with its own devices
+        total = len(audio_paths)
+        audio_paths = shard_files(audio_paths, pid, n_proc)
+        print(f">>Host {pid}/{n_proc}: {len(audio_paths)} of {total} files")
     results = {}
     for audio_path in audio_paths:
         print(">>Performing transcription...")
