@@ -169,6 +169,23 @@ Phases, each of which passes or raises (the script then exits non-zero):
      tokens identical, K4 launched; two ``python -m whisperx_tpu_torch``
      processes with torchrun's ``RANK`` / ``WORLD_SIZE`` owning disjoint,
      covering slices of three files.
+  14. trainers (last; ``whisperx_tpu_torch/train/``): (a) one step of each
+     trainer's loss at test-nano (micro ``loss_active`` / ``loss_full``,
+     ctc ``loss_fn``, align ``loss_a`` / ``loss_b``, online
+     ``loss_compact``), CUDA against the CPU on copies of the same weights
+     and windows, TF32 off: the loss within TRAIN_LOSS_RTOL, each gradient
+     within TRAIN_GRAD_RTOL (CTC: TRAIN_CTC_GRAD_RTOL, placed by two
+     witnesses: the CTC in f64 within TRAIN_GRAD_RTOL, a TF32 control
+     outside the limit) of its largest CPU entry, K1 2 per encoder pass, and ``loss_b``'s encoder gradients
+     through K1's gradient rule non-zero and the CPU's; (b)
+     ``train_micro()`` on the card to its certificate, whose checkpoint
+     transcribes two ``build_files`` recordings exactly through
+     ``load_model(path, device="cuda")``; (c) full width: large-v3 f32
+     online-trainer steps (8 fresh windows, K1 32 a step), one ``loss_b``
+     step at 2 windows (K1 and its gradient rule 32 each), wav2vec2
+     BASE_CONFIG CTC steps (16 rows of 4.8 s): ms per step, peak memory,
+     K1's share of a profiled step's kernel time; (d) K1 in f32 at
+     [160, 1500, 64] beside its gradient rule, SDPA and the bound.
 
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA GPU, or without the
@@ -177,7 +194,7 @@ package beside this file, it exits non-zero and prints no result.
     python3 chip_smoke.py --kernels
 
 runs phases 1-3 only; ``--parallel`` phases 1, 2 and 13, the latter on a
-freshly loaded large-v3. ``--kernels``: every kernel's checks, determinism and per-shape
+freshly loaded large-v3; ``--train`` phases 1, 2 and 14. ``--kernels``: every kernel's checks, determinism and per-shape
 times (K1, K1b, K2, K4, K3, K3kt, K3i8), and prints their entries. Copied
 into a checkout of another commit, it times that commit's kernels the same
 way: run both in one call to compare two versions on one card.
@@ -3606,6 +3623,457 @@ def phase_small_serving(models: dict) -> None:
     )
 
 
+# phase 14 (the trainers): one step of each loss, CUDA against the CPU, is
+# held to these: the loss within TRAIN_LOSS_RTOL relative; each gradient
+# tensor within TRAIN_GRAD_RTOL of its largest CPU entry (TF32 off on both;
+# the order of f32 sums differs, and the CUDA embedding and CTC backwards
+# sum with atomics)
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_RTOL = 1e-4
+# the CTC loss's gradients: its forward-backward adds log-probabilities in
+# f32 over 239 frames to a row NLL of ~317 (random weights), whose f32 ulp
+# (3e-5) is already ~1e-4 of the terms exp(alpha + beta - NLL). Held
+# between two readings that `ctc_gate_witnesses` takes in every run: with
+# the CTC's sums in f64 the devices agree within TRAIN_GRAD_RTOL, and the
+# same step with TF32 on (a precision leak) must fall outside this limit.
+# On an H100 80GB HBM3 at 700 W: f32 1.30e-4, f64 CTC 3.22e-6, TF32 1.20e-3
+TRAIN_CTC_GRAD_RTOL = 3e-4
+TRAIN_WINDOWS = 4  # test-nano windows of the CUDA-against-CPU steps
+FULL_ONLINE_WINDOWS, FULL_B_WINDOWS, FULL_STEPS = 8, 2, 3
+CTC_ROWS = 16  # wav2vec2 BASE_CONFIG rows of 4.8 s
+
+
+def train_step_at(device: str, loss_name: str, whisper, w2v, batch: dict, ctc_rows: tuple):
+    """One loss of the trainers and its gradients on ``device``, from copies
+    of the same weights: (loss, {name: gradient on the CPU}, K1 launches).
+    The data are numpy arrays, moved to ``device``."""
+    import copy
+
+    import torch
+
+    from whisperx_tpu_torch.audio.mel import _log_mel_batch_body
+    from whisperx_tpu_torch.ops.flash_attention import flash_attention
+    from whisperx_tpu_torch.train import align_micro as am, align_online as ao, ctc_micro as cm
+    from whisperx_tpu_torch.train import micro as mi
+    from whisperx_tpu_torch.models.whisper.model import precompute_cross_kv
+
+    dev = torch.device(device)
+    t = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    heads = am.alignment_heads_of(whisper.dims)
+    k1_before = flash_attention.launches
+    if loss_name.startswith("ctc loss_fn"):
+        model = copy.deepcopy(w2v).to(dev)
+        named = [(n, p.requires_grad_(True)) for n, p in model.named_parameters()]
+        fn = ctc_loss_f64 if loss_name.endswith("in f64") else cm.loss_fn
+        loss = fn(model, *(torch.from_numpy(x).to(dev) for x in ctc_rows))
+    else:
+        model = copy.deepcopy(whisper).to(dev)
+        dims, dec = model.dims, model.decoder
+        feats = ao.features(model.encoder, t["a16"], dims.n_mels, dims.n_audio_head)
+        view = None
+        if loss_name in ("micro loss_active", "micro loss_full"):
+            body = mi.decoder_params(dec)
+        elif loss_name != "align loss_b":
+            body = mi.decoder_params(dec, frozen=())
+        if loss_name in ("micro loss_active", "align loss_a", "online loss_compact"):
+            small = mi.gather_rows(dec.tok_emb, t["active"])
+            view = mi.compact_decoder(dec, small)
+            named = [("tok_emb (compact)", small)]
+        elif loss_name == "micro loss_full":
+            named = [("tok_emb", dec.tok_emb.requires_grad_(True))]
+        if loss_name == "align loss_b":
+            named = [(n, p.requires_grad_(True)) for n, p in model.named_parameters()]
+        else:
+            named += [(n, p) for n, p in dec.named_parameters() if any(p is b for b in body)]
+        rows = [t[n] for n in ("tsk", "tsm", "ntk", "ntm", "at", "aw")]
+        if loss_name == "micro loss_active":
+            with torch.no_grad():
+                ck, cv = precompute_cross_kv(dec, feats, dims.n_text_head)
+            tsk, tsm = t["tsk"], t["tsm"]
+            loss = mi.loss_active(view, tsk, t["remap"][tsk[:, 1:]], tsm, t["remap"], ck, cv)
+        elif loss_name == "micro loss_full":
+            with torch.no_grad():
+                ck, cv = precompute_cross_kv(dec, feats, dims.n_text_head)
+            loss = mi.loss_full(dec, t["tsk"], t["tsm"], ck, cv)
+        elif loss_name == "align loss_a":
+            r = t["remap"]
+            tsk, tsm, ntk, ntm, at, aw = rows
+            loss = am.loss_a(view, feats, tsk, r[tsk[:, 1:]], tsm, ntk, r[ntk[:, 1:]], ntm, at, aw, r, heads)
+        elif loss_name == "align loss_b":
+            mel = _log_mel_batch_body(t["a16"].float() / 32768.0, dims.n_mels)
+            loss, _ = am.loss_b(model, mel, *rows, heads)
+        else:
+            loss = ao.loss_compact(view, feats, *rows, t["remap"], heads)
+    loss.backward()
+    grads = {n: p.grad.detach().cpu() for n, p in named}
+    return float(loss.detach()), grads, flash_attention.launches - k1_before
+
+
+def ctc_loss_f64(model, batch, logit_pad, lab, lab_pad) -> "torch.Tensor":
+    """``ctc_micro.loss_fn`` with the model's f32 log-probs widened to f64
+    before ``F.ctc_loss``: the same forward, the CTC's own sums in f64."""
+    import torch.nn.functional as F
+
+    from whisperx_tpu_torch.models.wav2vec2.model import forward
+
+    logp = forward(model, batch).double()
+    in_len = (1 - logit_pad).sum(1).long()
+    tgt_len = (1 - lab_pad).sum(1).long()
+    return F.ctc_loss(logp.transpose(0, 1), lab.long(), in_len, tgt_len, blank=0, reduction="none").mean()
+
+
+def grad_gap(g0: dict, g1: dict):
+    """The worst ``max |g1 - g0|`` over the gradient tensors, each over the
+    largest entry of its ``g0``, and that tensor's name. An attention key
+    bias shifts a query's scores alike: its exact gradient is 0 and both
+    sides give rounding noise, held to the largest gradient of the model."""
+    assert set(g0) == set(g1)
+    largest = max(float(g.abs().max()) for g in g0.values())
+    worst, worst_name = 0.0, ""
+    for name, g in g0.items():
+        scale = largest if name.endswith("attn.key.b") else float(g.abs().max())
+        err = float((g1[name] - g).abs().max()) / scale
+        if math.isnan(err):
+            return err, name
+        if err > worst:
+            worst, worst_name = err, name
+    return worst, worst_name
+
+
+def same_step(label: str, cpu, cuda, grad_rtol: float = TRAIN_GRAD_RTOL) -> None:
+    """A loss and its gradients, CUDA against the CPU (``train_step_at``)."""
+    (l0, g0, _), (l1, g1, _) = cpu, cuda
+    rel = abs(l1 - l0) / abs(l0)
+    assert math.isfinite(l1) and rel <= TRAIN_LOSS_RTOL, (label, l0, l1)
+    worst, worst_name = grad_gap(g0, g1)
+    assert worst <= grad_rtol, (label, worst_name, worst, grad_rtol)
+    print(
+        f"[train] {label}: loss cpu {l0:.7f} cuda {l1:.7f} (rel {rel:.2e}); {len(g0)} gradient "
+        f"tensors, worst |cuda - cpu| / max|cpu| {worst:.2e} ({worst_name}; tol {grad_rtol:g}); ok"
+    )
+
+
+def ctc_gate_witnesses(cpu, cuda, *args) -> None:
+    """The two readings that place TRAIN_CTC_GRAD_RTOL, taken beside the
+    CTC gate on the same weights and rows (``args`` as ``train_step_at``'s
+    after the loss's name): with the CTC's sums in f64 (``ctc_loss_f64``)
+    on both devices, the gradients must agree within TRAIN_GRAD_RTOL, so
+    the f32 gap is the CTC's own rounding (the CPU's f32 step against its
+    f64 one, and the card's, are printed beside it); and the f32 step on the card with TF32
+    on for the matmuls and cuDNN (forward and backward), a control, must
+    fall outside TRAIN_CTC_GRAD_RTOL."""
+    import torch
+
+    cpu64 = train_step_at("cpu", "ctc loss_fn, CTC in f64", *args)
+    cuda64 = train_step_at("cuda", "ctc loss_fn, CTC in f64", *args)
+    m, c = torch.backends.cuda.matmul, torch.backends.cudnn
+    saved = m.allow_tf32, c.allow_tf32
+    m.allow_tf32 = c.allow_tf32 = True
+    try:
+        tf32 = train_step_at("cuda", "ctc loss_fn", *args)
+        torch.cuda.synchronize()
+    finally:
+        m.allow_tf32, c.allow_tf32 = saved
+    sound, f64, rounding, card_rounding, control = (
+        grad_gap(cpu[1], cuda[1]), grad_gap(cpu64[1], cuda64[1]), grad_gap(cpu64[1], cpu[1]),
+        grad_gap(cuda64[1], cuda[1]), grad_gap(cpu[1], tf32[1]),
+    )
+    print(
+        "[train] ctc loss_fn, the gate's witnesses (worst |g - g_ref| / max|g_ref|): CUDA against the "
+        f"CPU in f32 {sound[0]:.2e} ({sound[1]}); with the CTC in f64 {f64[0]:.2e} ({f64[1]}; tol "
+        f"{TRAIN_GRAD_RTOL:g}); f32 CTC against f64 on the CPU {rounding[0]:.2e} ({rounding[1]}), "
+        f"on the card {card_rounding[0]:.2e} ({card_rounding[1]}); "
+        f"control, TF32 on, CUDA against the CPU {control[0]:.2e} ({control[1]}; must exceed "
+        f"{TRAIN_CTC_GRAD_RTOL:g}); losses f32 cpu {cpu[0]:.7f} cuda {cuda[0]:.7f} tf32 {tf32[0]:.7f}, "
+        f"f64 cpu {cpu64[0]:.7f} cuda {cuda64[0]:.7f}"
+    )
+    assert f64[0] <= TRAIN_GRAD_RTOL, ("the CTC gate's f64 witness", f64)
+    assert control[0] > TRAIN_CTC_GRAD_RTOL, ("the CTC gate's TF32 control passes the limit", control)
+
+
+def profiled_step(step, label: str) -> str:
+    """One more ``step()``, under ``torch.profiler``: its wall, the device's
+    kernel time and K1's share of it, as a phrase of a ``[train]`` line."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = device_events(prof)
+    assert events, f"[train] {label}: the profiler recorded no device activity"
+    total = sum(ms for _, ms, _ in events)
+    k1 = [(ms, n) for name, ms, n in events if "wholek_attention" in name]
+    k1_ms, k1_n = sum(ms for ms, _ in k1), sum(n for _, n in k1)
+    return (
+        f"; a further step under the profiler: wall {wall:.1f} ms, {total:.1f} ms of kernels "
+        f"(device busy {total / wall:.1%}), K1 {k1_ms:.1f} ms over {k1_n} launches "
+        f"({k1_ms / total:.1%} of the kernel time)"
+    )
+
+
+def phase_train() -> None:
+    """The trainers (``whisperx_tpu_torch/train/``) on the card: (a) one step
+    of each trainer's loss at test-nano, CUDA against the CPU on copies of
+    the same weights and the same 4 windows (K1 2 per encoder pass; in
+    ``loss_b`` the encoder's gradients through K1's gradient rule, non-zero
+    and the CPU's); (b) ``train_micro()`` to its certificate, whose
+    checkpoint must transcribe a ``build_files`` recording exactly through
+    ``load_model(path, device="cuda")``; (c) full width: large-v3 f32 steps
+    of the online trainer (8 fresh windows, the encoder through K1) and of
+    ``loss_b`` (2 windows, K1 and its gradient rule 32 each), wav2vec2
+    BASE_CONFIG CTC steps (16 rows of 4.8 s): ms per step, peak memory, K1's
+    share of the step's device time; (d) K1 in f32 at the online step's
+    shape beside its gradient rule, SDPA and the bound."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    import whisperx_tpu_torch
+    from whisperx_tpu_torch.audio.mel import _log_mel_batch_body
+    from whisperx_tpu_torch.models.wav2vec2 import BASE_CONFIG, init_params as w2v_init
+    from whisperx_tpu_torch.models.whisper import get_dims, load_model as load_whisper
+    from whisperx_tpu_torch.ops import flash_attention as fa
+    from whisperx_tpu_torch.train import align_micro as am, align_online as ao, ctc_micro as cm
+    from whisperx_tpu_torch.train import micro as mi
+    from whisperx_tpu_torch.train.optim import Adam
+    from whisperx_tpu_torch.utils.precision import no_tf32_cudnn, reference_matmul
+
+    # (a) CUDA against the CPU, test-nano
+    nano = load_whisper("test-nano", dtype=torch.float32, device="cpu", seed=0)
+    tok = mi.english_tokenizer(nano.dims)
+    lex = mi._lexicon(mi.PHRASES)
+    _, a16, tsk, tsm, ntk, ntm, at, aw = ao.make_batch(
+        np.random.default_rng(2), TRAIN_WINDOWS, tok, lex, mi.PHRASES
+    )
+    active, remap = mi.active_remap(ao.active_ids(tok, mi.PHRASES))
+    batch = dict(a16=a16, tsk=tsk, tsm=tsm, ntk=ntk, ntm=ntm, at=at, aw=aw, active=active, remap=remap)
+    w2v = w2v_init(cm.micro_ctc_config(), torch.Generator().manual_seed(0))
+    ctc_rows = cm.sample_rows(np.random.default_rng(7), TRAIN_WINDOWS, cm.micro_ctc_config(), cm.default_vocab())[:4]
+    calls = {"n": 0}
+    rule = fa.attention_backward
+
+    def counted_rule(*args):
+        calls["n"] += 1
+        return rule(*args)
+
+    fa.attention_backward = counted_rule
+    try:
+        with reference_matmul(), no_tf32_cudnn():
+            for name in ("micro loss_active", "micro loss_full", "ctc loss_fn", "align loss_a",
+                         "align loss_b", "online loss_compact"):
+                cpu = train_step_at("cpu", name, nano, w2v, batch, ctc_rows)
+                calls["n"] = 0
+                cuda = train_step_at("cuda", name, nano, w2v, batch, ctc_rows)
+                torch.cuda.synchronize()
+                same_step(name, cpu, cuda, TRAIN_CTC_GRAD_RTOL if name == "ctc loss_fn" else TRAIN_GRAD_RTOL)
+                if name == "ctc loss_fn":
+                    ctc_gate_witnesses(cpu, cuda, nano, w2v, batch, ctc_rows)
+                want_k1 = 0 if name == "ctc loss_fn" else nano.dims.n_audio_layer * (2 if name == "align loss_b" else 1)
+                want_rule = nano.dims.n_audio_layer if name == "align loss_b" else 0
+                assert cuda[2] == want_k1 and calls["n"] == want_rule, (name, cuda[2], calls["n"])
+                if name == "align loss_b":
+                    enc = {n: g for n, g in cuda[1].items() if n.startswith("encoder.blocks") and "attn.query" in n}
+                    assert enc and all(float(g.abs().max()) > 0 for g in enc.values()), name
+                    print(
+                        f"[train] align loss_b: K1 {cuda[2]} launches (the features' encoder pass and "
+                        f"loss_b's, {nano.dims.n_audio_layer} each), K1's gradient rule {calls['n']} "
+                        f"calls; the encoder's attention gradients non-zero and the CPU's: max |g| "
+                        + ", ".join(f"{n} {float(g.abs().max()):.3e}" for n, g in sorted(enc.items()))
+                    )
+    finally:
+        fa.attention_backward = rule
+
+    # (b) the whole micro trainer on the card
+    fa.flash_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model, dims, report = mi.train_micro(device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = report["steps"] + report["full_steps"] + 95 * report["certify_rounds"]
+    print(
+        f"[train] train_micro(device='cuda'): {wall:.2f} s wall, {steps} optimizer steps "
+        f"({steps / wall:.1f} steps/s), final loss {report['final_loss']:.6f}, min margin "
+        f"{report['min_margin']} after {report['certify_rounds']} certify rounds (stops at 2.0 or 6), "
+        f"{report['examples']} windows, K1 {fa.flash_attention.launches} launches"
+    )
+    assert fa.flash_attention.launches == dims.n_audio_layer, fa.flash_attention.launches
+    assert report["final_loss"] < 0.05 and report["min_margin"] > 0.3, report
+    with tempfile.TemporaryDirectory() as root:
+        mi.save_micro_checkpoint(root, model, dims, report)
+        pipe = whisperx_tpu_torch.load_model(
+            root, device="cuda", language="en", vad_method="energy", task="transcribe"
+        )
+        for fi, (audio, events) in enumerate(mi.build_files()[:2]):
+            spoken = " ".join(text.strip() for _, text in events)
+            got = " ".join(
+                s["text"].strip()
+                for s in pipe.transcribe(audio, batch_size=8, chunk_size=mi.DEFAULT_CHUNK_SIZE)["segments"]
+            )
+            print(f"[train] the card-trained checkpoint, bf16 on cuda, file {fi}: {got!r}")
+            assert got == spoken, (got, spoken)
+    del model, pipe
+    torch.cuda.empty_cache()
+
+    # (c) full width: large-v3 f32 and wav2vec2 base
+    large = load_whisper("large-v3", dtype=torch.float32, device="cuda", seed=0)
+    dims = large.dims
+    tok = mi.english_tokenizer(dims)
+    heads = am.alignment_heads_of(dims)
+    active, remap = (torch.from_numpy(x).cuda() for x in mi.active_remap(ao.active_ids(tok, mi.PHRASES)))
+    dec = large.decoder
+    rng = np.random.default_rng(0)
+
+    def online_batch(n):
+        _, a16, *rows = ao.make_batch(rng, n, tok, lex, mi.PHRASES)
+        return torch.from_numpy(a16).cuda(), [torch.from_numpy(x).cuda() for x in rows]
+
+    def report_steps(label, ms, k1_each, extra=""):
+        print(
+            f"[train] {label}: ms per step {' '.join(f'{x:.1f}' for x in ms)} (host clock, synchronised; "
+            f"median {float(np.median(ms)):.1f}); peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; K1 {k1_each} launches a step{extra}"
+        )
+
+    with reference_matmul(), no_tf32_cudnn():
+        body = mi.decoder_params(dec, frozen=())
+        small = mi.gather_rows(dec.tok_emb, active)
+        view = mi.compact_decoder(dec, small)
+        opt = Adam([small, *body], 1.2e-3)
+
+        def online_step(data):
+            a16, rows = data
+            feats = ao.features(large.encoder, a16, dims.n_mels, dims.n_audio_head)
+            loss = ao.loss_compact(view, feats, *rows, remap, heads)
+            loss.backward()
+            opt.step()
+            return float(loss.detach())
+
+        torch.cuda.reset_peak_memory_stats()
+        ms, host_ms = [], []
+        for _ in range(FULL_STEPS):
+            t0 = time.perf_counter()
+            data = online_batch(FULL_ONLINE_WINDOWS)
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            before = fa.flash_attention.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = online_step(data)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            assert math.isfinite(loss) and fa.flash_attention.launches - before == dims.n_audio_layer, loss
+        data = online_batch(FULL_ONLINE_WINDOWS)
+        profiled = profiled_step(lambda: online_step(data), "online")
+        report_steps(
+            f"large-v3 f32 online step ({FULL_ONLINE_WINDOWS} fresh windows, loss_compact, Adam over the "
+            f"decoder and {len(active)} compact rows; batch built on the host in "
+            f"{float(np.median(host_ms)):.1f} ms, not in the step), last loss {loss:.4f}",
+            ms, dims.n_audio_layer, profiled,
+        )
+        del opt, small, view, body
+        for p in large.parameters():
+            p.grad = None
+        torch.cuda.empty_cache()
+
+        # loss_b at 2 windows: the encoder trained through K1's gradient rule
+        every = [p.requires_grad_(True) for p in large.parameters()]
+        opt = Adam(every, 3e-4)
+        calls["n"] = 0
+        fa.attention_backward = counted_rule
+        try:
+            def b_step():
+                a16, (tsk, tsm, ntk, ntm, at, aw) = online_batch(FULL_B_WINDOWS)
+                mel = _log_mel_batch_body(a16.float() / 32768.0, dims.n_mels)
+                loss, _ = am.loss_b(large, mel, tsk, tsm, ntk, ntm, at, aw, heads)
+                loss.backward()
+                enc_g = float(large.encoder.blocks[0].attn.query.w.grad.abs().max())
+                opt.step()
+                return float(loss.detach()), enc_g
+
+            torch.cuda.reset_peak_memory_stats()
+            before = fa.flash_attention.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, enc_g = b_step()
+            torch.cuda.synchronize()
+            b_ms = [(time.perf_counter() - t0) * 1e3]
+            launches, rules = fa.flash_attention.launches - before, calls["n"]
+            assert math.isfinite(loss) and enc_g > 0, (loss, enc_g)
+            assert launches == dims.n_audio_layer and rules == dims.n_audio_layer, (launches, rules)
+            profiled = profiled_step(b_step, "loss_b")
+        finally:
+            fa.attention_backward = rule
+        report_steps(
+            f"large-v3 f32 align loss_b step ({FULL_B_WINDOWS} windows, every parameter, Adam; the "
+            f"first, which allocates Adam's moments), loss {loss:.4f}, encoder block 0 max |dL/dWq| "
+            f"{enc_g:.3e}, K1's gradient rule {rules} calls",
+            b_ms, launches, profiled,
+        )
+        del opt, every, large
+        torch.cuda.empty_cache()
+
+        # CTC at wav2vec2 base
+        w2v = w2v_init(BASE_CONFIG, torch.Generator(device="cuda").manual_seed(0))
+        params = [p.requires_grad_(True) for p in w2v.parameters()]
+        opt = Adam(params, 2.5e-4)
+        vocab = cm.default_vocab()
+
+        def ctc_step():
+            rows = cm.sample_rows(rng, CTC_ROWS, BASE_CONFIG, vocab)[:4]
+            loss = cm.loss_fn(w2v, *(torch.from_numpy(x).cuda() for x in rows))
+            loss.backward()
+            opt.step()
+            return float(loss.detach())
+
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for _ in range(FULL_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = ctc_step()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            assert math.isfinite(loss), loss
+        report_steps(
+            f"wav2vec2 BASE_CONFIG CTC step ({CTC_ROWS} rows of 4.8 s, F.ctc_loss, Adam; rows drawn on "
+            f"the host inside the step), last loss {loss:.4f}", ms, 0, profiled_step(ctc_step, "ctc"),
+        )
+        del opt, params, w2v
+        torch.cuda.empty_cache()
+
+        # (d) K1 in f32 at the online step's shape, and its gradient rule
+        bh, t, d = FULL_ONLINE_WINDOWS * dims.n_audio_head, 1500, dims.n_audio_state // dims.n_audio_head
+        q, k, v = attention_case(bh, t, d, torch.float32, seed=4)
+        err = check_attention("K1 f32, training shape", fa.wholek_attention(q, k, v),
+                              fa._attention_reference(q, k, v), 1e-4, q.shape)
+        dout = torch.randn_like(q)
+        k1_ms = cuda_ms(lambda: fa.wholek_attention(q, k, v))
+        plain_ms = cuda_ms(lambda: fa._attention_reference(q, k, v), iters=5)
+        sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q[None], k[None], v[None]))
+        rule_ms = cuda_ms(lambda: fa.attention_backward(q, k, v, dout), iters=5)
+        qg, kg, vg = (x.clone().requires_grad_(True) for x in (q, k, v))
+        out = F.scaled_dot_product_attention(qg[None], kg[None], vg[None])
+        sdpa_bwd_ms = cuda_ms(
+            lambda: torch.autograd.grad(out, (qg, kg, vg), dout[None], retain_graph=True), iters=5
+        )
+        peak = PEAK_OPS_PER_S["torch.float32"]
+        bound = max(4 * bh * t * d * 4 / PEAK_BYTES_PER_S, 4 * bh * t * t * d / peak) * 1e3
+        rule_bound = max(8 * bh * t * d * 4 / PEAK_BYTES_PER_S, 10 * bh * t * t * d / peak) * 1e3
+        print(
+            f"[train] K1 f32 at [{bh}, {t}, {d}] (the online step's encoder): kernel {k1_ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, sdpa {sdpa_ms:.4f} ms, bound {bound:.4f} ms by operations at "
+            f"{peak / 1e12:.0f} TFLOP/s, max_abs_err {err:.2e}; its gradient rule (attention_backward, "
+            f"plain torch) {rule_ms:.4f} ms, SDPA's backward {sdpa_bwd_ms:.4f} ms, bound "
+            f"{rule_bound:.4f} ms (10·BH·T²·D operations)"
+        )
+        del q, k, v, dout, qg, kg, vg, out
+    torch.cuda.empty_cache()
+
+
 def timed(phase, *args, label: str = "", **kwargs):
     """Run one phase and print its wall time: the script has 1200 s for
     every phase, the kernels' build included."""
@@ -3632,6 +4100,10 @@ def main() -> int:
     t_start = time.perf_counter()
     name = phase_card()
     timed(phase_build)
+    if sys.argv[1:] == ["--train"]:  # phase 14 alone
+        timed(phase_train)
+        print(f"[done] {REPO}: phase 14 passed in {time.perf_counter() - t_start:.1f} s")
+        return 0
     if sys.argv[1:] == ["--parallel"]:  # phase 13 alone, on a fresh large-v3
         import whisperx_tpu_torch
 
@@ -3689,6 +4161,7 @@ def main() -> int:
     timed(phase_diarization, main_result)
     timed(phase_convert)
     timed(phase_small_model)
+    timed(phase_train)
     for label, (entry, fn, attr) in unused.items():
         entry["launches"] = getattr(fn, attr)
         print(f"[paths] {label} launches over every path: {entry['launches']}")

@@ -88,15 +88,15 @@ def test_port_runs_without_jax(nano_ckpt):
     """A fresh interpreter imports the port (its CLI, orchestrator, backends,
     seek loop, kernels' modules, quantization, alignment, word timing and
     the native audio library, speculative decoding, every VAD, diarization,
-    the unified pipeline, the serving layer and the converters with their
-    entry point too), transcribes with word timestamps, with a
-    VAD and without, with a ``self:1`` draft behind the pyannote VAD, runs
+    the unified pipeline, the serving layer, the converters with their
+    entry point, and the trainers too), transcribes with word timestamps,
+    with a VAD and without, with a ``self:1`` draft behind the pyannote VAD, runs
     the Silero network through the batch processor, aligns (random weights,
     allowed by the suite's ``WHISPERX_TPU_ALLOW_RANDOM_ALIGN``), diarizes on
     both paths (the ResNet embedding with PLDA clustering; a segmenter) and
     scores the turns, and runs ``load_pipeline`` with diarization; neither
-    jax nor any module of the JAX package is loaded, nor safetensors or
-    transformers, nor pandas by the imports."""
+    jax nor any module of the JAX package is loaded, nor optax, safetensors
+    or transformers, nor pandas by the imports."""
     code = textwrap.dedent(
         f"""
         import sys
@@ -134,6 +134,10 @@ def test_port_runs_without_jax(nano_ckpt):
         import whisperx_tpu_torch.convert.wespeaker
         import whisperx_tpu_torch.convert.whisper_hf
         import whisperx_tpu_torch.parallel
+        import whisperx_tpu_torch.train
+        import whisperx_tpu_torch.train.align_online
+        import whisperx_tpu_torch.train.ctc_micro
+        import whisperx_tpu_torch.train.optim
         from whisperx_tpu_torch.convert import load_checkpoint, save_checkpoint
         # no module of the port imports pandas (alignment's optional nltk
         # may, when it runs)
@@ -188,7 +192,7 @@ def test_port_runs_without_jax(nano_ckpt):
             m for m in sys.modules
             if m == "jax" or m.startswith("jax.") or m == "jaxlib"
             or m == "whisperx_tpu" or m.startswith("whisperx_tpu.")
-            or m.split(".")[0] in ("safetensors", "transformers")
+            or m.split(".")[0] in ("safetensors", "transformers", "optax")
         )
         assert not bad, bad
         print("OK")

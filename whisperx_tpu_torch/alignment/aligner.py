@@ -134,6 +134,7 @@ class Wav2Vec2Aligner:
                 return self.dictionary[tok]
         return 0
 
+    @torch.no_grad()
     def _forward(self, batch: np.ndarray) -> np.ndarray:
         audio = torch.from_numpy(batch).to(self.device)
         return forward(self.model, audio).cpu().numpy()

@@ -314,9 +314,11 @@ def _encoder_layer(p: EncoderLayer, x: torch.Tensor, n_heads: int, stable_ln: bo
     return x
 
 
-@torch.no_grad()
 def forward(model: Wav2Vec2, audio: torch.Tensor) -> torch.Tensor:
-    """[B, samples] → CTC log-prob emissions [B, frames, vocab] (f32)."""
+    """[B, samples] → CTC log-prob emissions [B, frames, vocab] (f32).
+    Differentiable (the CTC trainer's loss runs through it); inference
+    callers wrap it in ``torch.no_grad``. A backward pass that should match
+    the forward's numerics runs inside the same two precision scopes."""
     cfg = model.config
     with reference_matmul(), no_tf32_cudnn():
         feats = feature_extractor(model, audio.to(model.dtype))

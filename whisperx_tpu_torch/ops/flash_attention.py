@@ -19,6 +19,13 @@ CPU tensor goes to the same kernel's plain version, the same arithmetic in
 plain torch (used by the CPU tests and, on the card, as the yardstick the
 kernel is held against). Nothing on the CUDA path calls a plain version.
 
+Every launch goes through one ``torch.autograd.Function``, so a CUDA output
+carries a gradient rule: the forward is the kernel, the backward
+``attention_backward`` (dQ, dK, dV in plain torch from the saved q, k and v,
+P recomputed in f32). The JAX package has no backward kernel either: its
+trainers run XLA's attention both ways. The plain versions, which CPU
+tensors take, are differentiable as they stand.
+
 The causal mask is aligned at the end of the keys (query i sees keys
 j ≤ i + Tk − Tq), as the JAX package's XLA route and the decoder's own mask
 align it. The Pallas kernel aligns it at the start (j ≤ i): the two agree
@@ -34,6 +41,7 @@ import math
 import torch
 
 from whisperx_tpu_torch.ops import count_launch
+from whisperx_tpu_torch.utils.precision import reference_matmul
 
 LOG2_E = math.log2(math.e)
 WHOLEK_MAX_KEYS = 2048  # the JAX dispatch: longer key axes take K2
@@ -153,6 +161,49 @@ def _kernel_library() -> ctypes.CDLL:
     return lib
 
 
+def attention_backward(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    dout: torch.Tensor,
+    causal: bool = False,
+):
+    """(dQ, dK, dV) of ``softmax(q kᵀ / √D) v`` for q [BH, Tq, D], k/v
+    [BH, Tk, D] and the output's gradient ``dout`` [BH, Tq, D]: P is
+    recomputed in f32 from the saved operands (TF32 off), causal masked at
+    the end of the keys as K2 masks it; each gradient in its operand's
+    dtype."""
+    with reference_matmul():
+        scale = 1.0 / math.sqrt(q.shape[-1])
+        qf, kf, vf, df = (x.float() for x in (q, k, v, dout))
+        s = torch.matmul(qf, kf.transpose(-1, -2)) * scale  # [BH, Tq, Tk]
+        if causal:
+            s = s.masked_fill(~_causal_keep(q.shape[1], k.shape[1], q.device), float("-inf"))
+        p = torch.softmax(s, dim=-1)
+        dv = torch.matmul(p.transpose(-1, -2), df)
+        dp = torch.matmul(df, vf.transpose(-1, -2))
+        ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True)) * scale
+        dq = torch.matmul(ds, kf)
+        dk = torch.matmul(ds.transpose(-1, -2), qf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _KernelAttention(torch.autograd.Function):
+    """One kernel launch (``mode``) with ``attention_backward`` as its
+    gradient rule."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mode):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal = mode == _K2_CAUSAL
+        return _launch(q, k, v, mode)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        return (*attention_backward(q, k, v, dout, ctx.causal), None)
+
+
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mode: int) -> torch.Tensor:
     _check_operands(q, k, v)
     if mode == _K2_CAUSAL and q.shape[1] > k.shape[1]:
@@ -188,10 +239,10 @@ def wholek_attention(
     if q.device.type == "cpu":
         return _attention_reference(q, k, v, skip_max=skip_max, mxu_sum=mxu_sum)
     if mxu_sum:
-        out = _launch(q, k, v, _K1B)
+        out = _KernelAttention.apply(q, k, v, _K1B)
         count_launch(wholek_attention, "mxu_sum_launches")
     else:
-        out = _launch(q, k, v, _K1_SKIP_MAX if skip_max else _K1)
+        out = _KernelAttention.apply(q, k, v, _K1_SKIP_MAX if skip_max else _K1)
         count_launch(flash_attention)
     return out
 
@@ -207,7 +258,7 @@ def flash_attention_tiled(
     take the plain version."""
     if q.device.type == "cpu":
         return _flash_reference(q, k, v, causal=causal, bk=bk)
-    out = _launch(q, k, v, _K2_CAUSAL if causal else _K2)
+    out = _KernelAttention.apply(q, k, v, _K2_CAUSAL if causal else _K2)
     count_launch(flash_attention_tiled)
     return out
 
