@@ -16,7 +16,13 @@ Phases, each of which passes or raises (the script then exits non-zero):
      of the int8 CLI path), K3, K3kt and K3i8
      (``cross_attention_decode.cu``, at the decode step of batch 8 and of
      batch 1, both timed, and at three other shapes); every case of every
-     kernel is called twice and must give the same bits;
+     kernel is called twice and must give the same bits; K1's f32 route
+     (error-compensated TF32 on the tensor cores) is timed at
+     [160, 1500, 64] against its floor (3 x its f32 work at the TF32 rate)
+     and the CUDA cores' f32 bound, and its error against f64 at
+     [40, 1500, 64] (and K2 causal f32 at D 32) must stay within
+     F32_WITNESS_FACTOR x the plain f32 version's, with plain TF32 as a
+     control that must fall outside;
   4. main path: ``whisperx_tpu_torch.load_model("large-v3", ...)`` at full
      width with random weights, ``.transcribe`` of ~120 s of synthetic
      speech; the kernel launch counts are reset just before and read just
@@ -195,7 +201,7 @@ package beside this file, it exits non-zero and prints no result.
 
 runs phases 1-3 only; ``--parallel`` phases 1, 2 and 13, the latter on a
 freshly loaded large-v3; ``--train`` phases 1, 2 and 14. ``--kernels``: every kernel's checks, determinism and per-shape
-times (K1, K1b, K2, K4, K3, K3kt, K3i8), and prints their entries. Copied
+times (K1, K1 f32, K1b, K2, K4, K3, K3kt, K3i8), and prints their entries. Copied
 into a checkout of another commit, it times that commit's kernels the same
 way: run both in one call to compare two versions on one card.
 """
@@ -220,6 +226,13 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # published H100 SXM peaks (NVIDIA data sheet), for the bound columns
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
+# dense TF32 on the tensor cores: K1's f32 route takes each f32 product as
+# three TF32 ones (error-compensated), so its floor is 3x its f32 work here
+PEAK_TF32_OPS_PER_S = 494.7e12
+# K1's f32 accuracy witness: the kernel's max error against an f64
+# evaluation within this factor of the plain f32 version's own; plain TF32
+# (10 mantissa bits) must fall outside it, so every run shows it can fail
+F32_WITNESS_FACTOR = 8.0
 
 L2_BYTES = 50 * 2**20
 KERNEL_SOURCES = ("flash_attention", "quant_matmul", "cross_attention_decode")
@@ -450,6 +463,57 @@ def check_attention(label, out, ref, tol, shape):
     return err
 
 
+def attention_f64(q, k, v, causal=False):
+    """``_attention_reference`` (or, causal, ``_flash_reference``)
+    evaluated in f64: q scaled and rounded to f32 as the function defines
+    it, then scores, exp2, the weighted sum and the normalisation in f64."""
+    import torch
+
+    from whisperx_tpu_torch.ops.flash_attention import _causal_keep, _scaled_q
+
+    s = _scaled_q(q).double() @ k.double().transpose(-1, -2)
+    if causal:
+        s = s.masked_fill(~_causal_keep(q.shape[1], k.shape[1], q.device), float("-inf"))
+    p = torch.exp2(s - s.amax(dim=-1, keepdim=True))
+    return (p @ v.double()) / p.sum(dim=-1, keepdim=True)
+
+
+def f32_witness(label, out, q, k, v, causal=False) -> float:
+    """The kernel's f32 ``out`` against f64 within F32_WITNESS_FACTOR x the
+    plain f32 version's own error (TF32 off), and the plain version with
+    TF32 on (restored after) outside that limit."""
+    import torch
+
+    from whisperx_tpu_torch.ops.flash_attention import K2_BLOCK_KEYS, _attention_reference, _flash_reference
+
+    def plain():
+        if causal:
+            return _flash_reference(q, k, v, causal=True, bk=K2_BLOCK_KEYS)
+        return _attention_reference(q, k, v)
+
+    exact = attention_f64(q, k, v, causal)
+    gap = lambda x: (x.double() - exact).abs().max().item()  # noqa: E731
+    matmul = torch.backends.cuda.matmul
+    saved = matmul.allow_tf32
+    try:
+        matmul.allow_tf32 = False
+        err_kernel, err_f32 = gap(out), gap(plain())
+        matmul.allow_tf32 = True
+        err_tf32 = gap(plain())
+    finally:
+        matmul.allow_tf32 = saved
+    limit = F32_WITNESS_FACTOR * err_f32
+    ok = err_kernel <= limit < err_tf32
+    print(
+        f"[kernels] {label} witness against f64: kernel {err_kernel:.3e}, plain f32 {err_f32:.3e} "
+        f"(limit {F32_WITNESS_FACTOR:g}x = {limit:.3e}; kernel {err_kernel / err_f32:.2f}x), control "
+        f"plain TF32 {err_tf32:.3e} ({err_tf32 / err_f32:.1f}x, must be outside) {'ok' if ok else 'FAIL'}"
+    )
+    if not ok:
+        raise AssertionError(f"{label}: f32 witness kernel {err_kernel} f32 {err_f32} tf32 {err_tf32}")
+    return err_kernel
+
+
 def phase_kernels() -> list:
     """K1 against its plain version at the main-path shape (large-v3, batch
     8: [160, 1500, 64] bf16) and the variants the kernel takes; K1b (its
@@ -480,13 +544,13 @@ def phase_kernels() -> list:
     ]
     entries = []
 
-    def timed(name, source_line, fn, plain, library, bytes_moved, ops, dtype, err):
+    def timed(name, source_line, fn, plain, library, bytes_moved, ops, dtype, err, peak=None):
         ms = cuda_ms(fn)
         plain_ms = cuda_ms(plain, iters=5)
         library_ms = cuda_ms(library)
         e = kernel_entry(
             name, "flash_attention.cu", f"whisperx_tpu/ops/flash_attention.py:{source_line}",
-            err, ms, plain_ms, bytes_moved, ops, PEAK_OPS_PER_S[str(dtype)], library_ms,
+            err, ms, plain_ms, bytes_moved, ops, peak or PEAK_OPS_PER_S[str(dtype)], library_ms,
         )
         print(
             f"[kernels] {name} timing: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
@@ -510,6 +574,36 @@ def phase_kernels() -> list:
                 4 * bh * t * d * esize, 4 * bh * t * t * d, dtype, err,
             ))
         del q, k, v, out, ref
+
+    # K1 in f32 at the main path's shape: the trainers' encoder and
+    # --compute_type float32's; held to its design's floor, three TF32
+    # products for each f32 one (the CUDA cores' f32 bound printed beside)
+    bh, t, d = 160, 1500, 64
+    q, k, v = attention_case(bh, t, d, torch.float32, seed=4)
+    out = wholek_attention(q, k, v)
+    err = check_attention("K1 f32 main shape", out, _attention_reference(q, k, v), 1e-4, q.shape)
+    same_bits("K1 f32 main shape", out, wholek_attention(q, k, v))
+    ops = 4 * bh * t * t * d
+    k1_f32 = timed(
+        "K1 wholek_attention (f32)", 125, lambda: wholek_attention(q, k, v),
+        lambda: _attention_reference(q, k, v),
+        lambda: F.scaled_dot_product_attention(q[None], k[None], v[None]),
+        4 * bh * t * d * 4, 3 * ops, torch.float32, err, peak=PEAK_TF32_OPS_PER_S,
+    )
+    print(
+        f"[kernels] K1 f32 bounds: {k1_f32['bound_ms']:.4f} ms as 3 x {ops / 1e9:.2f} GFLOP of TF32 "
+        f"at {PEAK_TF32_OPS_PER_S / 1e12:.1f} TFLOP/s (the design's floor, held to), "
+        f"{ops / PEAK_OPS_PER_S['torch.float32'] * 1e3:.4f} ms as {ops / 1e9:.2f} GFLOP of f32 on the "
+        f"CUDA cores at {PEAK_OPS_PER_S['torch.float32'] / 1e12:.0f} TFLOP/s; kernel "
+        f"{k1_f32['bound_ms'] / k1_f32['ms']:.1%} of its floor, {k1_f32['library_ms'] / k1_f32['ms']:.2f}x "
+        f"faster than SDPA-f32"
+    )
+    entries.append(k1_f32)
+    del q, k, v, out
+    # its accuracy: against f64, beside the plain f32 version and plain TF32
+    q, k, v = attention_case(40, 1500, 64, torch.float32, seed=5)
+    f32_witness("K1 f32 [40, 1500, 64]", wholek_attention(q, k, v), q, k, v)
+    del q, k, v
 
     # K1b: the denominator of the rounded weights
     bh, t, d = 160, 1500, 64
@@ -542,6 +636,8 @@ def phase_kernels() -> list:
         ref = _flash_reference(q, k, v, causal=causal, bk=K2_BLOCK_KEYS)
         err = check_attention(f"K2 {label}", out, ref, tol, q.shape)
         same_bits(f"K2 {label}", out, flash_attention_tiled(q, k, v, causal=causal))
+        if dtype == torch.float32 and d == 32:  # the f32 route's witness at D 32, causal
+            f32_witness(f"K2 {label}", out, q, k, v, causal=causal)
         if is_timed:
             esize = q.element_size()
             ops = 2 * bh * tq * tk * d if causal else 4 * bh * tq * tk * d
@@ -3815,7 +3911,7 @@ def profiled_step(step, label: str) -> str:
     )
 
 
-def phase_train() -> None:
+def phase_train(k1_f32=None) -> None:
     """The trainers (``whisperx_tpu_torch/train/``) on the card: (a) one step
     of each trainer's loss at test-nano, CUDA against the CPU on copies of
     the same weights and the same 4 windows (K1 2 per encoder pass; in
@@ -3927,6 +4023,7 @@ def phase_train() -> None:
     active, remap = (torch.from_numpy(x).cuda() for x in mi.active_remap(ao.active_ids(tok, mi.PHRASES)))
     dec = large.decoder
     rng = np.random.default_rng(0)
+    fa.flash_attention.launches = 0  # K1's f32 route over the large-v3 steps, read after loss_b
 
     def online_batch(n):
         _, a16, *rows = ao.make_batch(rng, n, tok, lex, mi.PHRASES)
@@ -4015,6 +4112,14 @@ def phase_train() -> None:
         )
         del opt, every, large
         torch.cuda.empty_cache()
+        f32_launches = fa.flash_attention.launches
+        print(
+            f"[train] K1 (f32 route) launches over the large-v3 f32 steps: {f32_launches} "
+            f"(= {dims.n_audio_layer} x {FULL_STEPS + 3} steps, timed and profiled)"
+        )
+        assert f32_launches == dims.n_audio_layer * (FULL_STEPS + 3), f32_launches
+        if k1_f32 is not None:
+            k1_f32["launches"] = f32_launches
 
         # CTC at wav2vec2 base
         w2v = w2v_init(BASE_CONFIG, torch.Generator(device="cuda").manual_seed(0))
@@ -4062,11 +4167,13 @@ def phase_train() -> None:
         )
         peak = PEAK_OPS_PER_S["torch.float32"]
         bound = max(4 * bh * t * d * 4 / PEAK_BYTES_PER_S, 4 * bh * t * t * d / peak) * 1e3
+        floor = 3 * 4 * bh * t * t * d / PEAK_TF32_OPS_PER_S * 1e3
         rule_bound = max(8 * bh * t * d * 4 / PEAK_BYTES_PER_S, 10 * bh * t * t * d / peak) * 1e3
         print(
             f"[train] K1 f32 at [{bh}, {t}, {d}] (the online step's encoder): kernel {k1_ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms, sdpa {sdpa_ms:.4f} ms, bound {bound:.4f} ms by operations at "
-            f"{peak / 1e12:.0f} TFLOP/s, max_abs_err {err:.2e}; its gradient rule (attention_backward, "
+            f"{peak / 1e12:.0f} TFLOP/s ({floor:.4f} ms as three TF32 products, the kernel's floor), "
+            f"max_abs_err {err:.2e}; its gradient rule (attention_backward, "
             f"plain torch) {rule_ms:.4f} ms, SDPA's backward {sdpa_bwd_ms:.4f} ms, bound "
             f"{rule_bound:.4f} ms (10·BH·T²·D operations)"
         )
@@ -4113,12 +4220,12 @@ def main() -> int:
         timed(phase_parallel, pipe)
         print(f"[done] {REPO}: phase 13 passed in {time.perf_counter() - t_start:.1f} s")
         return 0
-    k1, k1b, k2 = timed(phase_kernels)
+    k1, k1_f32, k1b, k2 = timed(phase_kernels)
     k4, k4_shapes = timed(phase_k4)
     (k3, k3kt, k3i8), k3_shapes = timed(phase_k3)
     if sys.argv[1:] == ["--kernels"]:  # phases 1-3 only
         print(f"[done] {REPO}: kernel phases passed in {time.perf_counter() - t_start:.1f} s")
-        print(json.dumps({"kernels": [k1, k1b, k2, k3, k3kt, k3i8, k4],
+        print(json.dumps({"kernels": [k1, k1_f32, k1b, k2, k3, k3kt, k3i8, k4],
                           "k4_shapes": k4_shapes, "k3_shapes": k3_shapes}))
         return 0
     # the kernels with no caller in the package, counted over every path
@@ -4161,14 +4268,14 @@ def main() -> int:
     timed(phase_diarization, main_result)
     timed(phase_convert)
     timed(phase_small_model)
-    timed(phase_train)
+    timed(phase_train, k1_f32)
     for label, (entry, fn, attr) in unused.items():
         entry["launches"] = getattr(fn, attr)
         print(f"[paths] {label} launches over every path: {entry['launches']}")
         assert entry["launches"] == 0, (label, entry["launches"])
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(card_line())  # again here: a long log's head may be cut off
-    print(json.dumps({"kernels": [k1, k1b, k2, k3, k3kt, k3i8, k4]}))
+    print(json.dumps({"kernels": [k1, k1_f32, k1b, k2, k3, k3kt, k3i8, k4]}))
     print(json.dumps({
         "ok": True,
         "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()},

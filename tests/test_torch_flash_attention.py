@@ -2,7 +2,9 @@
 the JAX package: the Pallas ``_flash_attention_wholek`` and
 ``_flash_attention_pallas`` run in interpret mode, and the XLA oracle
 ``_xla_attention``. The CUDA kernel itself is held against these plain
-versions on the card by ``chip_smoke.py``."""
+versions on the card by ``chip_smoke.py``; its f32 route's arithmetic
+(error-compensated TF32) is emulated here, against the JAX kernels and an
+f64 evaluation."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -17,7 +19,10 @@ from whisperx_tpu.ops.flash_attention import (
 )
 from whisperx_tpu_torch.ops.flash_attention import (
     _attention_reference,
+    _causal_keep,
     _check_operands,
+    _flash_reference,
+    _scaled_q,
     flash_attention,
     flash_attention_tiled,
     wholek_attention,
@@ -250,3 +255,85 @@ def test_k1b_and_k2_cpu_tensors_launch_nothing():
     wholek_attention(q, k, v, mxu_sum=True)
     flash_attention_tiled(q, k, v, causal=True)
     assert (wholek_attention.mxu_sum_launches, flash_attention_tiled.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# The f32 kernel's arithmetic: error-compensated TF32 ("3xTF32"), emulated
+# ---------------------------------------------------------------------------
+
+# the kernel's error against f64 may be this factor of the plain f32
+# version's own; plain TF32 (one product) must fall outside it
+F32_WITNESS_FACTOR = 8.0
+
+
+def _tf32(x):
+    """``cvt.rna.tf32.f32``: x rounded to 10 mantissa bits, to nearest with
+    ties away from zero, on the f32 bits."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_product(a, b, terms):
+    """a @ b as the tensor cores take f32 operands: each split into
+    hi = tf32(x) and lo = tf32(x - hi), the products lo·hi + hi·lo + hi·hi
+    summed in f32 and lo·lo dropped (``terms=3``), or hi·hi alone, plain
+    TF32 (``terms=1``)."""
+    ah, bh = _tf32(a), _tf32(b)
+    if terms == 1:
+        return ah @ bh
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def _kernel_f32_emulation(q, k, v, terms, skip_max=False, causal=False):
+    """The f32 route's arithmetic, both products through ``_tf32_product``:
+    q scaled as in K1, scores in log2 space, exp2, the denominator of the
+    unrounded weights (K2's ``max(l, 1e-20)`` when causal)."""
+    s = _tf32_product(_scaled_q(q), k.transpose(-1, -2), terms)
+    if causal:
+        s = s.masked_fill(~_causal_keep(q.shape[1], k.shape[1], q.device), float("-inf"))
+    p = torch.exp2(s if skip_max else s - s.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    return _tf32_product(p, v, terms) / (l.clamp(min=1e-20) if causal else l)
+
+
+def _f64(q, k, v, causal=False):
+    """The same function in f64 (q scaled and rounded to f32 as defined)."""
+    s = _scaled_q(q).double() @ k.double().transpose(-1, -2)
+    if causal:
+        s = s.masked_fill(~_causal_keep(q.shape[1], k.shape[1], q.device), float("-inf"))
+    p = torch.exp2(s - s.amax(dim=-1, keepdim=True))
+    return (p @ v.double()) / p.sum(dim=-1, keepdim=True)
+
+
+@pytest.mark.parametrize(
+    "tq,tk,d,skip_max,causal",
+    [
+        (200, 256, 64, False, False),  # the cases of test_reference_matches_pallas_wholek
+        (200, 300, 64, True, False),
+        (200, 256, 32, False, False),
+        (128, 300, 32, True, False),
+        (384, 384, 64, False, True),  # K2 causal (Tk a multiple of the Pallas key tile)
+    ],
+)
+def test_f32_kernel_arithmetic_keeps_f32_accuracy(tq, tk, d, skip_max, causal):
+    """The split form the f32 kernel computes on the tensor cores agrees with
+    the JAX kernels (interpret mode) within TOL, and its error against f64 is
+    within F32_WITNESS_FACTOR x the plain f32 version's own; plain TF32 is
+    within TOL too, so TOL cannot tell the two apart: the control is that it
+    misses the f64 limit (by two orders of magnitude or more)."""
+    q, k, v = _qkv(2, tq, tk, d, seed=tq + tk + d)
+    jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
+    if causal:
+        want = _flash_attention_pallas(jq, jk, jv, causal=True, bq=256, bk=128, interpret=True)
+        plain = _flash_reference(*_torch(q, k, v), causal=True, bk=128)
+    else:
+        want = _flash_attention_wholek(jq, jk, jv, bq=128, skip_max=skip_max, interpret=True)
+        plain = _attention_reference(*_torch(q, k, v), skip_max=skip_max)
+    tq_, tk_, tv_ = _torch(q, k, v)
+    split = _kernel_f32_emulation(tq_, tk_, tv_, 3, skip_max, causal)
+    one = _kernel_f32_emulation(tq_, tk_, tv_, 1, skip_max, causal)
+    np.testing.assert_allclose(split.numpy(), np.asarray(want), **TOL)
+    exact = _f64(tq_, tk_, tv_, causal)
+    err_split, err_f32, err_tf32 = ((x.double() - exact).abs().max().item() for x in (split, plain, one))
+    assert err_split <= F32_WITNESS_FACTOR * err_f32, (err_split, err_f32)
+    assert err_tf32 > F32_WITNESS_FACTOR * err_f32, (err_tf32, err_f32)

@@ -19,6 +19,15 @@ CPU tensor goes to the same kernel's plain version, the same arithmetic in
 plain torch (used by the CPU tests and, on the card, as the yardstick the
 kernel is held against). Nothing on the CUDA path calls a plain version.
 
+The kernel runs on the tensor cores in both dtypes: bf16 as it is, f32 as
+error-compensated TF32 (each operand split into a TF32 high and low part,
+three products, the low·low one dropped), which keeps the plain f32
+version's accuracy where plain TF32 would lose three decimal digits.
+``tests/test_torch_flash_attention.py`` emulates that arithmetic on the
+CPU against the JAX kernels and an f64 evaluation; ``chip_smoke.py`` holds
+the kernel's own error against f64 on the card, with plain TF32 as the
+control that must fail the same limit.
+
 Every launch goes through one ``torch.autograd.Function``, so a CUDA output
 carries a gradient rule: the forward is the kernel, the backward
 ``attention_backward`` (dQ, dK, dV in plain torch from the saved q, k and v,
