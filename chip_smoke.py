@@ -26,12 +26,16 @@ Phases, each of which passes or raises (the script then exits non-zero):
   4. main path: ``whisperx_tpu_torch.load_model("large-v3", ...)`` at full
      width with random weights, ``.transcribe`` of ~120 s of synthetic
      speech; the kernel launch counts are reset just before and read just
-     after, and every kernel of the path must have launched;
+     after, and every kernel of the path must have launched; every decode
+     step after a prefill replays a captured CUDA graph (``[graph]`` lines:
+     captures, replays, cache entries, static bytes);
   5. decode profile: the main path's model decodes one batch of 8 chunks
-     greedily for 48 steps, timed on the host clock over 3 runs, then once
-     for 24 steps under ``torch.profiler`` (device busy share, kernels by
-     device time);
-     then the same with the cross-decode opt-in
+     greedily for 48 steps, each step a replay of its captured graph and,
+     in turns, uncaptured (the yardstick), timed on the host clock over 3
+     runs each, then once each for 24 steps under ``torch.profiler``
+     (device busy share, kernels by device time); the two must give the
+     same bits and launch counts, and the profiled kernels must be found
+     inside the replays; then the same with the cross-decode opt-in
      (``WHISPERX_TPU_CROSS_DECODE=1``): K3 must launch once per decoder
      layer per sampled step, and one step's logits must agree with the
      einsum route's;
@@ -77,7 +81,9 @@ Phases, each of which passes or raises (the script then exits non-zero):
      at M 8, verify passes at M 40), Σ launches × ms against the bound;
   11. serving (after 8, on the main path's model, its weights shared; one
      temperature, as ``serve --temperature_increment_on_fallback 0``):
-     (a) ``TranscriptionServer(max_batch_size=3, max_wait_ms=500)`` with
+     first two threads decode batches of one shape on the model at once,
+     and each must get a lone run's bits (their steps replay captured
+     graphs, on cache entries of their own); (a) ``TranscriptionServer(max_batch_size=3, max_wait_ms=500)`` with
      ``start_background(port=0)``, ``/healthz`` 200; (b) three clients POST
      at once over ``urllib``: a 21 s WAV, a 25 s body of raw PCM i16 at
      44.1 kHz, a 29 s multipart upload with ``response_format=verbose_json``
@@ -200,7 +206,9 @@ package beside this file, it exits non-zero and prints no result.
     python3 chip_smoke.py --kernels
 
 runs phases 1-3 only; ``--parallel`` phases 1, 2 and 13, the latter on a
-freshly loaded large-v3; ``--train`` phases 1, 2 and 14. ``--kernels``: every kernel's checks, determinism and per-shape
+freshly loaded large-v3; ``--train`` phases 1, 2 and 14; ``--decode``
+phases 1, 2, the decode profiles of 5 and 6 (captured against uncaptured)
+and phase 11's two threads, on freshly loaded large-v3 models. ``--kernels``: every kernel's checks, determinism and per-shape
 times (K1, K1 f32, K1b, K2, K4, K3, K3kt, K3i8), and prints their entries. Copied
 into a checkout of another commit, it times that commit's kernels the same
 way: run both in one call to compare two versions on one card.
@@ -282,6 +290,8 @@ RESNET_WINDOWS = 240  # phase 10(d): 2 s windows, as the pipeline cuts them
 SERVE_AUDIO_S = (21.0, 25.0, 29.0)
 SERVE_ALIGN_S = 12.0
 SERVE_STREAM_S = {"partials": 8.0, "diarize": 20.0}
+# phase 11's two threads decoding one shape at once: steps a decode
+SERVE_THREAD_STEPS = 32
 # phase 12: the converted checkpoints transcribe 30 s (one window) for 24
 # tokens a row: every kernel launch and shape of the path, and a profiler
 # trace small enough to read back (~1.1 M events, 315 MB at 48 tokens)
@@ -377,6 +387,41 @@ class cross_decode_opt_in:
             os.environ.pop(CROSS_DECODE_FLAG, None)
         else:
             os.environ[CROSS_DECODE_FLAG] = self.saved
+
+
+class k4_by_shape:
+    """Inside: K4's launches counted by shape, ``.counts()`` → {(M, K, N):
+    n}, through a shim around ``int8_matmul`` that counts with
+    ``ops.count_launch``. A decode step captured in a CUDA graph runs no
+    Python when it is replayed, so a plain counter in the shim would see
+    only the capture; ``count_launch`` records the capture's launches and
+    adds them again at every replay, as it does for the kernels' own
+    counts."""
+
+    def __getattr__(self, name):  # a shape not launched yet
+        if name.startswith("shape "):
+            return 0
+        raise AttributeError(name)
+
+    def counts(self) -> dict:
+        return {tuple(int(v) for v in k.split()[1:]): n for k, n in vars(self).items()
+                if k.startswith("shape ")}
+
+    def __enter__(self):
+        from whisperx_tpu_torch.ops import count_launch
+        from whisperx_tpu_torch.ops import quant_matmul as qm
+
+        self.qm, self.real = qm, qm.int8_matmul
+
+        def counted(x, qw, scale, group_size):
+            count_launch(self, f"shape {x.shape[0]} {x.shape[1]} {qw.shape[1]}")
+            return self.real(x, qw, scale, group_size)
+
+        qm.int8_matmul = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.qm.int8_matmul = self.real
 
 
 def card_line() -> str:
@@ -963,6 +1008,7 @@ def phase_main_path(k1: dict):
 
     import whisperx_tpu_torch
     from whisperx_tpu_torch.asr import DEFAULT_ASR_OPTIONS
+    from whisperx_tpu_torch.decoding.step_graph import graph_cache
     from whisperx_tpu_torch.ops.flash_attention import flash_attention
     from whisperx_tpu_torch.utils.metrics import GLOBAL_TRACKER
 
@@ -983,6 +1029,7 @@ def phase_main_path(k1: dict):
     GLOBAL_TRACKER.reset()
     torch.cuda.reset_peak_memory_stats()
     flash_attention.launches = 0
+    graphs = graph_cache(pipe.model.decoder).stats()
     t0 = time.perf_counter()
     result = pipe.transcribe(audio, language="en")
     torch.cuda.synchronize()
@@ -1012,6 +1059,7 @@ def phase_main_path(k1: dict):
         f"batch fill {counters.get('batch_used', 0):.0f}/{counters.get('batch_slots', 0):.0f}; "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
     )
+    graph_line("main", pipe.model, graphs)
     return pipe, result
 
 
@@ -1282,13 +1330,45 @@ def device_events(prof) -> list:
     return sorted(((name, ms, n) for name, (ms, n) in totals.items()), key=lambda e: -e[1])
 
 
+def decode_outputs(handle) -> list:
+    """A ``decode_dispatch`` handle's results as tensors: tokens, lengths,
+    sum_logprobs and no-speech probabilities (a beam decode's banks, live
+    beams and scores), and the step count."""
+    import torch
+
+    parts = handle["beam_device"] if "beam_device" in handle else handle["device"][:4]
+    return [p if torch.is_tensor(p) else torch.tensor(p) for p in parts] + [torch.tensor(handle["steps"])]
+
+
+def graph_line(tag: str, model, before: dict) -> dict:
+    """The ``[graph]`` line: the decoder's graph cache since ``before``."""
+    import torch
+
+    from whisperx_tpu_torch.decoding.step_graph import graph_cache
+
+    now = graph_cache(model.decoder).stats()
+    print(
+        f"[graph] {tag}: captures {now['captures'] - before['captures']}, replays "
+        f"{now['replays'] - before['replays']}; cache entries {now['entries']}, static buffers "
+        f"{now['static_bytes'] / 2**20:.1f} MiB; device memory allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB"
+    )
+    return now
+
+
 def phase_decode_profile(model, tag: str = "profile", beam_size=None, k3=None) -> None:
     """Where one batched decode spends its time: PROFILE_BATCH 30 s mels of
     the pipeline's warm-up signal, decoded for PROFILE_STEPS tokens (encoder
     and prefill included) with the main path's options: greedily, or with
-    ``beam_size`` beams (the CLI's default of 5). ``k3``: under the
-    cross-decode opt-in, the K3 kernel entry; every run must launch it once
-    per decoder layer per sampled step, and its device time is printed."""
+    ``beam_size`` beams (the CLI's default of 5). Each decode runs twice
+    over: each step a replay of its captured CUDA graph (the path every
+    single-card decode takes) and uncaptured (``_eager``, the yardstick),
+    timed in turns; every run's tokens, lengths and scores must equal the
+    first captured run's bits and every kernel's launches must be equal.
+    ``k3``: under the cross-decode opt-in, the K3 kernel entry; every run
+    must launch it once per decoder layer per sampled step, and its device
+    time is printed. The kernels named in each profile (K3, K4) must be
+    found in the captured decode's trace, inside its replays."""
     import dataclasses
 
     import numpy as np
@@ -1299,69 +1379,101 @@ def phase_decode_profile(model, tag: str = "profile", beam_size=None, k3=None) -
     from whisperx_tpu_torch.audio import log_mel_batch
     from whisperx_tpu_torch.decoding import DecodingOptions
     from whisperx_tpu_torch.decoding.decode import decode_dispatch
+    from whisperx_tpu_torch.decoding.step_graph import graph_cache
+    from whisperx_tpu_torch.ops.cross_attention_decode import cross_attention_decode
+    from whisperx_tpu_torch.ops.flash_attention import flash_attention
+    from whisperx_tpu_torch.ops.quant_matmul import quant_matmul
+    from whisperx_tpu_torch.quant import QuantizedLinear
 
     audio = np.stack([warmup_audio(30.0)] * PROFILE_BATCH)
     mels = log_mel_batch(audio, model.dims.n_mels, device="cuda")
     opts = DecodingOptions(
         language="en", sample_len=PROFILE_STEPS, kv_quant=True, beam_size=beam_size
     )
+    counted = {"K1": flash_attention, "K3": cross_attention_decode, "K4": quant_matmul}
+    modes = {"captured": False, "uncaptured": True}  # name → _eager
+    first = {}
 
-    from whisperx_tpu_torch.ops.cross_attention_decode import cross_attention_decode
-
-    def run(opts=opts):
-        cross_attention_decode.launches = 0
-        h = decode_dispatch(model, mels, opts)
+    def run(mode, opts=opts):
+        for fn in counted.values():
+            fn.launches = 0
+        h = decode_dispatch(model, mels, opts, _eager=modes[mode])
         torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in counted.items()}
         want = model.dims.n_text_layer * h["steps"] if k3 is not None else 0
-        assert cross_attention_decode.launches == want, (cross_attention_decode.launches, want)
-        return h["steps"]
+        assert launches["K3"] == want, (mode, launches, want)
+        out = decode_outputs(h)
+        key = (mode, opts.sample_len)
+        ref = first.setdefault(opts.sample_len, (out, launches, mode))
+        same = all(torch.equal(a, b) for a, b in zip(out, ref[0]))
+        assert same and launches == ref[1], (f"[{tag}] {mode} run differs from the {ref[2]} one", key,
+                                             launches, ref[1])
+        return h["steps"], launches
 
-    run()  # warm-up: allocator, cuBLAS handles
-    per_step_ms = []
-    for _ in range(PROFILE_RUNS):
-        t0 = time.perf_counter()
-        steps = run()
-        per_step_ms.append((time.perf_counter() - t0) / steps * 1e3)
-    q1, med, q3 = np.percentile(per_step_ms, [25, 50, 75])
-    print(
-        f"[{tag}] batch {PROFILE_BATCH}, beam {beam_size or 1}, {steps} steps, {PROFILE_RUNS} runs: "
-        f"ms per step (wall, encoder and prefill included) "
-        f"{' '.join(f'{x:.3f}' for x in per_step_ms)}; median {med:.3f}, "
-        f"quartiles {q1:.3f} / {q3:.3f}"
-    )
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        traced = run(dataclasses.replace(opts, sample_len=PROFILE_TRACE_STEPS))
-        wall = time.perf_counter() - t0
-    events = device_events(prof)
-    assert events, f"[{tag}] the profiler recorded no device activity"
-    device_s = sum(ms for _, ms, _ in events) / 1e3
-    print(
-        f"[{tag}] one decode of {traced} steps under the profiler: wall {wall:.4f} s, CUDA "
-        f"kernels {device_s:.4f} s, device busy {device_s / wall:.1%}"
-    )
-    for name, ms, n in events[:10]:
-        print(f"[{tag}] {ms:10.3f} ms {n:7d} calls  {name[:90]}")
-    k4_events = [e for e in events if "int8_matmul" in e[0] or "splitk_reduce" in e[0]]
-    if k4_events:  # K4: its kernels (a split-K call launches two), by name
-        k4_ms = sum(ms for _, ms, _ in k4_events)
-        k4_calls = sum(n for name, _, n in k4_events if "reduce" not in name)
+    cache_before = graph_cache(model.decoder).stats()
+    for mode in ("captured", "uncaptured"):  # warm-up: captures, allocator, cuBLAS
+        run(mode)
+    per_step_ms = {mode: [] for mode in modes}
+    for i in range(PROFILE_RUNS):  # in turns: c u, u c, c u
+        for mode in (("captured", "uncaptured") if i % 2 == 0 else ("uncaptured", "captured")):
+            t0 = time.perf_counter()
+            steps, launches = run(mode)
+            per_step_ms[mode].append((time.perf_counter() - t0) / steps * 1e3)
+    for mode, ms in per_step_ms.items():
+        q1, med, q3 = np.percentile(ms, [25, 50, 75])
         print(
-            f"[{tag}] K4 device time per decode {k4_ms:.3f} ms over {k4_calls} calls "
-            f"({k4_ms / max(k4_calls, 1):.4f} ms a call, {k4_ms / device_s / 1e3:.1%} of the "
-            f"kernel time): " + "; ".join(
-                f"{kernel_name(name)} {n} x {ms / n:.4f} ms" for name, ms, n in k4_events
+            f"[{tag}] {mode}: batch {PROFILE_BATCH}, beam {beam_size or 1}, {steps} steps, {PROFILE_RUNS} "
+            f"runs: ms per step (wall, encoder and prefill included) {' '.join(f'{x:.3f}' for x in ms)}; "
+            f"median {med:.3f}, quartiles {q1:.3f} / {q3:.3f}"
+        )
+    print(
+        f"[{tag}] captured and uncaptured: tokens, lengths and scores bit-identical over "
+        f"{2 * PROFILE_RUNS + 2} runs; launches per decode equal: {launches}"
+    )
+    traced_opts = dataclasses.replace(opts, sample_len=PROFILE_TRACE_STEPS)
+    int8 = any(isinstance(m, QuantizedLinear) for m in model.decoder.modules())
+    for mode in modes:
+        run(mode, traced_opts)  # the traced shape's capture, outside the trace
+    k4_traced = {}
+    for mode in modes:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            traced, _ = run(mode, traced_opts)
+            wall = time.perf_counter() - t0
+        events = device_events(prof)
+        assert events, f"[{tag}] the profiler recorded no device activity"
+        device_s = sum(ms for _, ms, _ in events) / 1e3
+        print(
+            f"[{tag}] {mode}: one decode of {traced} steps under the profiler: wall {wall:.4f} s, CUDA "
+            f"kernels {device_s:.4f} s, device busy {device_s / wall:.1%}"
+        )
+        for name, ms, n in events[: 10 if mode == "captured" else 5]:
+            print(f"[{tag}] {mode} {ms:10.3f} ms {n:7d} calls  {name[:90]}")
+        k4_events = [e for e in events if "int8_matmul" in e[0] or "splitk_reduce" in e[0]]
+        assert bool(k4_events) == int8, (f"[{tag}] {mode}: K4's kernels in the trace", k4_events)
+        if k4_events:  # K4: its kernels (a split-K call launches two), by name
+            k4_ms = sum(ms for _, ms, _ in k4_events)
+            k4_calls = k4_traced[mode] = sum(n for name, _, n in k4_events if "reduce" not in name)
+            print(
+                f"[{tag}] {mode} K4 device time per decode {k4_ms:.3f} ms over {k4_calls} calls "
+                f"({k4_ms / max(k4_calls, 1):.4f} ms a call, {k4_ms / device_s / 1e3:.1%} of the "
+                f"kernel time): " + "; ".join(
+                    f"{kernel_name(name)} {n} x {ms / n:.4f} ms" for name, ms, n in k4_events
+                )
             )
-        )
-    if k3 is not None:
-        k3_events = [e for e in events if "cross_decode_kernel" in e[0]]
-        k3_ms = sum(ms for _, ms, _ in k3_events)
-        k3_calls = sum(n for _, _, n in k3_events)
-        print(
-            f"[{tag}] K3 launched {model.dims.n_text_layer} x {traced} times per decode; "
-            f"its device time {k3_ms:.3f} ms over {k3_calls} launches "
-            f"({k3_ms / max(k3_calls, 1):.4f} ms each, {k3_ms / wall / 1e3:.1%} of the decode's wall)"
-        )
+        if k3 is not None:
+            k3_events = [e for e in events if "cross_decode_kernel" in e[0]]
+            k3_ms = sum(ms for _, ms, _ in k3_events)
+            k3_calls = sum(n for _, _, n in k3_events)
+            assert k3_calls == model.dims.n_text_layer * traced, (f"[{tag}] {mode}: K3 in the trace", k3_calls)
+            print(
+                f"[{tag}] {mode} K3 launched {model.dims.n_text_layer} x {traced} times per decode; "
+                f"its device time {k3_ms:.3f} ms over {k3_calls} launches "
+                f"({k3_ms / max(k3_calls, 1):.4f} ms each, {k3_ms / wall / 1e3:.1%} of the decode's wall)"
+            )
+    # the replays' K4 kernels are in the captured trace: as many as eagerly
+    assert len(set(k4_traced.values())) <= 1, (f"[{tag}] K4 calls in the traces", k4_traced)
+    graph_line(tag, model, cache_before)
 
 
 def phase_cross_decode_step(model) -> None:
@@ -1590,11 +1702,7 @@ def phase_cli(k4: dict, k4_shapes: list):
     must be what ``k4_launches_per_shape`` derives from the code; with
     ``k4_shapes`` (phase 3's time per shape), K4's device time per CLI run
     against its floor, Σ launches × ms beside Σ launches × bound."""
-    import collections
-
     import torch
-
-    from whisperx_tpu_torch.ops import quant_matmul as qm
 
     from whisperx_tpu_torch import quant
     from whisperx_tpu_torch.__main__ import build_parser
@@ -1636,20 +1744,14 @@ def phase_cli(k4: dict, k4_shapes: list):
 
         quant.quantize_model = timed_quantize
         # K4's launches by shape, counted around the wrapper
-        real_int8_matmul, by_shape = qm.int8_matmul, collections.Counter()
-
-        def counted(x, qw, scale, group_size):
-            by_shape[(x.shape[0], x.shape[1], qw.shape[1])] += 1
-            return real_int8_matmul(x, qw, scale, group_size)
-
-        qm.int8_matmul = counted
         t0 = time.perf_counter()
         try:
-            pipe = transcribe_task(args, parser)
-            torch.cuda.synchronize()
+            with k4_by_shape() as shapes:
+                pipe = transcribe_task(args, parser)
+                torch.cuda.synchronize()
         finally:
             quant.quantize_model = real_quantize
-            qm.int8_matmul = real_int8_matmul
+        by_shape = shapes.counts()
         wall = time.perf_counter() - t0
         assert len(quantize_s) == 1, quantize_s
         k4_launches, k1_launches = quant_matmul.launches, flash_attention.launches
@@ -2087,10 +2189,7 @@ def phase_speculative_int8(model, k4_shapes: list) -> None:
     from the code (draft steps at M = 8, a shape the beam CLI never runs;
     verify passes at M = 40); Σ launches × ms over the shapes phase 3 timed
     against Σ launches × bound."""
-    import collections
-
     from whisperx_tpu_torch.asr import TranscriptionPipeline
-    from whisperx_tpu_torch.ops import quant_matmul as qm
     from whisperx_tpu_torch.ops.quant_matmul import quant_matmul
     from whisperx_tpu_torch.quant import QuantizedLinear
     from whisperx_tpu_torch.vad import EnergyVAD
@@ -2100,19 +2199,11 @@ def phase_speculative_int8(model, k4_shapes: list) -> None:
         {int(n.split(".")[2]) for n, m in model.named_modules() if isinstance(m, QuantizedLinear)}
     )
     q_target, q_draft = len(q_blocks), sum(1 for b in q_blocks if b < 4)
-    real, by_shape = qm.int8_matmul, collections.Counter()
-
-    def counted(x, qw, scale, group_size):
-        by_shape[(x.shape[0], x.shape[1], qw.shape[1])] += 1
-        return real(x, qw, scale, group_size)
-
-    qm.int8_matmul = counted
     quant_matmul.launches = 0
-    try:
+    with k4_by_shape() as shapes:
         run = spec_run(pipe, synth_speech(CLI_AUDIO_S, seed=2), "int8, self:4, gamma 4",
                        draft_model="self:4", spec_gamma=4, sample_len=SPEC_INT8_SAMPLE_LEN)
-    finally:
-        qm.int8_matmul = real
+    by_shape = shapes.counts()
     n_init = 3  # <|startoftranscript|><|en|><|transcribe|>
     want = spec_k4_launches(q_target, q_draft, run["decodes"], run["steps"], n_init)
     assert dict(by_shape) == want, (dict(by_shape), want)
@@ -2786,8 +2877,6 @@ def phase_convert() -> None:
     converted by ``python -m whisperx_tpu_torch.convert`` (Whisper with
     ``--quantize int8``), checked on the host, and run on the card on the
     path it serves."""
-    import collections
-
     import numpy as np
     import torch
 
@@ -2796,7 +2885,6 @@ def phase_convert() -> None:
     from whisperx_tpu_torch.convert.checkpoint import read_checkpoint
     from whisperx_tpu_torch.diarize import DiarizationPipeline
     from whisperx_tpu_torch.models.whisper import load_model as load_whisper
-    from whisperx_tpu_torch.ops import quant_matmul as qm
     from whisperx_tpu_torch.ops.flash_attention import flash_attention
     from whisperx_tpu_torch.ops.quant_matmul import quant_matmul
     from whisperx_tpu_torch.quant.core import quantize_weight
@@ -2926,17 +3014,10 @@ def phase_convert() -> None:
         t_load8 = time.perf_counter() - t0
         q_blocks = sorted({int(n.split(".")[2]) for n, m in pipe8.model.named_modules() if hasattr(m, "qw")})
         assert q_blocks == list(range(1, 31)), q_blocks
-        real_int8_matmul, by_shape = qm.int8_matmul, collections.Counter()
-
-        def counted(x, qw, scale, group_size):
-            by_shape[(x.shape[0], x.shape[1], qw.shape[1])] += 1
-            return real_int8_matmul(x, qw, scale, group_size)
-
-        qm.int8_matmul, before = counted, quant_matmul.launches
-        try:
+        before = quant_matmul.launches
+        with k4_by_shape() as shapes:
             result8, t_int8, passes8, k1_8, steps8 = run(pipe8)
-        finally:
-            qm.int8_matmul = real_int8_matmul
+        by_shape = shapes.counts()
         k4 = quant_matmul.launches - before
         want = k4_launches_per_shape(len(q_blocks), passes8, steps8, beams=1)
         assert dict(by_shape) == want and k4 == sum(want.values()), (dict(by_shape), want, k4)
@@ -3136,6 +3217,56 @@ class WSClient:
         self.sock.sendall(bytes(header) + mask + data.tobytes())
 
 
+def same_shape_threads(model) -> None:
+    """Two threads decoding the same shape on one model at once, as the
+    server's batcher and stream workers may: each gets the bits of a lone
+    run of its own batch. Their steps replay captured graphs, each decode
+    on a cache entry of its own (the second thread captures while the
+    first replays)."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from whisperx_tpu_torch.audio import log_mel_batch
+    from whisperx_tpu_torch.decoding import DecodingOptions
+    from whisperx_tpu_torch.decoding.decode import decode_dispatch
+    from whisperx_tpu_torch.decoding.step_graph import graph_cache
+
+    mels = [
+        log_mel_batch(np.stack([synth_speech(30.0, seed=s) for s in seeds]), model.dims.n_mels, device="cuda")
+        for seeds in ((20, 21), (22, 23))
+    ]
+    opts = DecodingOptions(language="en", sample_len=SERVE_THREAD_STEPS, kv_quant=True)
+    lone = [decode_outputs(decode_dispatch(model, m, opts)) for m in mels]
+    before = graph_cache(model.decoder).stats()
+    barrier = threading.Barrier(len(mels))
+    got, errors = [None] * len(mels), []
+
+    def worker(i):
+        try:
+            barrier.wait(60)
+            got[i] = decode_outputs(decode_dispatch(model, mels[i], opts))
+        except Exception as e:  # raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(len(mels))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    assert not errors and not any(t.is_alive() for t in threads), errors
+    for i, (a, b) in enumerate(zip(got, lone)):
+        assert all(torch.equal(x, y) for x, y in zip(a, b)), f"thread {i}: not a lone run's bits"
+    print(
+        f"[serve] two threads decoding batches of 2 x 30 s ({SERVE_THREAD_STEPS} steps) on one model at once: "
+        f"each got a lone run's tokens, lengths and scores, bit for bit; {wall:.3f} s for both"
+    )
+    graph_line("serve, two threads", model, before)
+
+
 def phase_serving(pipe) -> None:
     """Phase 11: the HTTP and WebSocket server over the main path's
     large-v3 bf16 model (its weights shared, not reloaded), one temperature
@@ -3152,6 +3283,7 @@ def phase_serving(pipe) -> None:
     from whisperx_tpu_torch.utils.metrics import GLOBAL_TRACKER
 
     t_phase = time.perf_counter()
+    same_shape_threads(pipe.model)
     m, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
     flags = lambda: (m.allow_tf32, m.allow_bf16_reduced_precision_reduction, cudnn.allow_tf32)  # noqa: E731
     flags_before = flags()
@@ -4219,6 +4351,23 @@ def main() -> int:
         )
         timed(phase_parallel, pipe)
         print(f"[done] {REPO}: phase 13 passed in {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if sys.argv[1:] == ["--decode"]:  # the decode phases alone, on fresh models
+        import whisperx_tpu_torch
+
+        pipe = whisperx_tpu_torch.load_model("large-v3", vad_method="energy", batch_size=8,
+                                             compute_type="bfloat16")
+        timed(phase_decode_profile, pipe.model)
+        timed(phase_cross_decode_step, pipe.model)
+        with cross_decode_opt_in():
+            timed(phase_decode_profile, pipe.model, "profile cross-decode", k3={}, label=" (cross-decode)")
+        timed(same_shape_threads, pipe.model)
+        del pipe
+        torch.cuda.empty_cache()
+        pipe = whisperx_tpu_torch.load_model("large-v3", vad_method="energy", batch_size=8,
+                                             compute_type="int8")
+        timed(phase_decode_profile, pipe.model, "profile int8", beam_size=5, label=" (int8)")
+        print(f"[done] {REPO}: decode phases passed in {time.perf_counter() - t_start:.1f} s")
         return 0
     k1, k1_f32, k1b, k2 = timed(phase_kernels)
     k4, k4_shapes = timed(phase_k4)

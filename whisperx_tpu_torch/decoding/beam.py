@@ -18,28 +18,42 @@ K·V scores, and the cross-attention K/V stay untiled ([B, 1500, H, Dh]):
 ``decoder_forward(..., beam_groups=K)`` folds the beams into the query axis.
 
 Differences of form, not of result: the JAX package runs the loop as one
-``lax.while_loop``; here it is a Python loop that reads the bank counts back
-once per step, like the port's greedy loop. The self-attention cache is
-reordered by replacing each layer's tensor in the cache with its
-``index_select`` (one copy of the cache per step). The 2K candidates are
-chosen with ties broken toward the lower index, the order of
-``jax.lax.top_k`` (``torch.topk`` promises no order among ties).
+``lax.while_loop``; here the host keeps the loop and reads the bank counts
+back once per step, and on one CUDA device each step is one replay of a
+captured CUDA graph (``step_graph.py``) over static buffers
+(``_BeamBuffers``; the banks' ``n_sampled`` is a device scalar), as in the
+port's greedy loop; the CPU, and meshed or tensor-parallel decodes, run the
+same body uncaptured. The self-attention cache is reordered in place: each
+layer's tensor is overwritten with its ``index_select`` (two copies of the
+cache per step). The 2K candidates are chosen with ties broken toward the
+lower index, the order of ``jax.lax.top_k`` (``torch.topk`` promises no
+order among ties).
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Sequence, Tuple
 
 import numpy as np
 import torch
 
 from whisperx_tpu_torch.decoding import filters as F
+from whisperx_tpu_torch.decoding.decode import (
+    _apply_filters,
+    _cache_len,
+    _cross_kv,
+    _reset_state,
+    _state_buffers,
+    _step_config,
+)
+from whisperx_tpu_torch.decoding.step_graph import load_cache, step_runner
 from whisperx_tpu_torch.models.whisper.model import (
+    HeadShards,
     KVCache,
     decoder_forward,
     encoder_forward,
-    precompute_cross_kv,
-    quantize_kv,
+    new_self_cache,
 )
 
 NEG_INF = float("-inf")
@@ -66,16 +80,20 @@ def _bank_writes(
     return write, torch.where(write, slot, torch.full_like(slot, c))
 
 
-def _gather_beams(
+def _gather_beams_(
     tensors: Sequence[torch.Tensor], src_beam: torch.Tensor, b: int, k: int
-) -> list:
-    """Reorder tensors whose leading (flattened) dim is B·K by per-row source
-    beams [B, K]. Beam-invariant state (the cross-KV) must not be passed: it
-    is [B, ...] and gathering it would copy gigabytes per step."""
+) -> None:
+    """Reorder, in place, tensors whose leading (flattened) dim is B·K by
+    per-row source beams [B, K]: each is overwritten with its
+    ``index_select`` (a ``HeadShards`` shard by shard). Beam-invariant state
+    (the cross-KV) must not be passed: it is [B, ...] and gathering it would
+    copy gigabytes per step."""
     flat_idx = (
         torch.arange(b, device=src_beam.device)[:, None] * k + src_beam
     ).reshape(-1)
-    return [x.index_select(0, flat_idx) for x in tensors]
+    for x in tensors:
+        for part in x if isinstance(x, HeadShards) else (x,):
+            part.copy_(part.index_select(0, flat_idx.to(part.device)))
 
 
 def _top_candidates(cand: torch.Tensor, m: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -97,6 +115,103 @@ def _top_candidates(cand: torch.Tensor, m: int) -> Tuple[torch.Tensor, torch.Ten
     return vals.gather(1, order), idx.gather(1, order)
 
 
+@dataclass
+class _BeamBuffers:
+    """What a beam step reads and writes, in place: the static buffers of a
+    captured step (``step_graph``). Rows are B·K beams; the banks are per
+    batch row, with a dummy slot C that absorbs the dropped writes."""
+
+    cache: KVCache
+    state: F.FilterState  # of [B·K] tensors
+    last_logits: torch.Tensor  # [B·K, V] f32
+    tokens: torch.Tensor  # [B·K, sample_len] int64
+    scores: torch.Tensor  # [B·K] f32: each beam's sum of log-probabilities
+    offset: torch.Tensor  # [B·K] int64: the next token's position
+    bank_tokens: torch.Tensor  # [B, C + 1, sample_len] int64
+    bank_scores: torch.Tensor  # [B, C + 1] f32
+    bank_lengths: torch.Tensor  # [B, C + 1] int64
+    bank_count: torch.Tensor  # [B] int64
+    n_sampled: torch.Tensor  # [] int64
+
+    @classmethod
+    def allocate(cls, dec, cross_k, cross_v, b: int, k: int, c: int, cache_len: int, cfg):
+        device = dec.tok_emb.device
+        bk = b * k
+        i64 = dict(dtype=torch.int64, device=device)
+        return cls(
+            cache=KVCache(*new_self_cache(dec, bk, cache_len, cfg.n_head), list(cross_k), list(cross_v)),
+            state=_state_buffers(bk, device),
+            last_logits=torch.empty((bk, dec.tok_emb.shape[0]), dtype=torch.float32, device=device),
+            tokens=torch.empty((bk, cfg.sample_len), **i64),
+            scores=torch.empty((bk,), dtype=torch.float32, device=device),
+            offset=torch.empty((bk,), **i64),
+            bank_tokens=torch.empty((b, c + 1, cfg.sample_len), **i64),
+            bank_scores=torch.empty((b, c + 1), dtype=torch.float32, device=device),
+            bank_lengths=torch.empty((b, c + 1), **i64),
+            bank_count=torch.empty((b,), **i64),
+            n_sampled=torch.empty((), **i64),
+        )
+
+    def start(self, cross_k, cross_v, init_bk: torch.Tensor, k: int, eot: int) -> None:
+        load_cache(self.cache, cross_k, cross_v)
+        _reset_state(self.state, init_bk)
+        self.tokens.fill_(eot)
+        # only beam 0 is live at first (identical prefixes would collapse)
+        rows = torch.arange(self.scores.shape[0], device=self.scores.device)
+        self.scores.copy_(torch.where(rows % k == 0, 0.0, NEG_INF))
+        self.offset.fill_(init_bk.shape[1])
+        self.bank_tokens.fill_(eot)
+        self.bank_scores.fill_(NEG_INF)
+        self.bank_lengths.zero_()
+        self.bank_count.zero_()
+        self.n_sampled.zero_()
+
+
+def _beam_step(dec, s: _BeamBuffers, cfg, k: int, c: int) -> None:
+    """One beam step over ``s``, in place: the 2K best of the K·V scores per
+    batch row, EOT candidates banked, the K best others continuing with
+    their tokens, filter state and self-KV rows gathered, and the decoder
+    run on the new tokens. Reads no value back to the host (a captured
+    step's body)."""
+    b = s.bank_count.shape[0]
+    logits = _apply_filters(s.last_logits, s.state, cfg)  # [B·K, V]
+    logprobs = torch.log_softmax(logits, dim=-1)
+    vocab = logprobs.shape[-1]
+    cand = (s.scores[:, None] + logprobs).reshape(b, k * vocab)
+    # at most one EOT per beam, so the 2K best hold ≥ K non-EOT
+    top_scores, top_idx = _top_candidates(cand, 2 * k)  # [B, 2K], best first
+    src_beam = top_idx // vocab
+    token = top_idx % vocab
+    is_eot = token == cfg.eot
+
+    # bank the EOT candidates (finished sequences), best first
+    write, slot_c = _bank_writes(is_eot, s.bank_count, k, c)
+    b_idx = torch.arange(b, device=s.bank_count.device)[:, None]
+    # the source beam's sequence at EOT time: [B, 2K, L]
+    s.bank_tokens[b_idx, slot_c] = s.tokens.reshape(b, k, -1)[b_idx, src_beam]
+    s.bank_scores[b_idx, slot_c] = torch.where(write, top_scores, NEG_INF)
+    s.bank_lengths[b_idx, slot_c] = torch.where(write, s.n_sampled, 0)
+    s.bank_count.add_(write.sum(dim=-1))
+
+    # the K best non-EOT candidates continue as the live beams; a stable
+    # sort on the EOT flag keeps score order within each class
+    sel = torch.argsort(is_eot.int(), dim=-1, stable=True)[:, :k]
+    token_flat = token.gather(1, sel).reshape(-1)
+    _gather_beams_(
+        [s.tokens, *s.state[:4], *s.cache.self_k, *s.cache.self_v],
+        src_beam.gather(1, sel), b, k,
+    )
+    s.scores.copy_(top_scores.gather(1, sel).reshape(-1))
+    s.tokens.scatter_(1, s.state.step[:, None], token_flat[:, None])
+    F.advance_filter_state_(s.state, token_flat, cfg.timestamp_begin)
+    logits = decoder_forward(
+        dec, token_flat[:, None], s.cache, s.offset, cfg.n_head, beam_groups=k
+    )
+    s.last_logits.copy_(logits[:, -1])
+    s.offset.add_(1)
+    s.n_sampled.add_(1)
+
+
 @torch.inference_mode()
 def _beam_decode(
     model,
@@ -106,115 +221,51 @@ def _beam_decode(
     beam_size: int,
     max_candidates: int,
     audio_is_features: bool,
+    capture: bool = True,
 ):
     """Returns (bank_tokens [B, C, L], bank_lengths [B, C], bank_scores
     [B, C], bank_count [B], live_tokens [B, K, L], live_scores [B, K],
     n_sampled, no_speech_probs [B], audio_features) with C =
-    ``max_candidates``."""
-    from whisperx_tpu_torch.decoding.decode import _apply_filters, init_kv_cache_like
-
+    ``max_candidates``. ``capture`` as in ``decode._decode``."""
     b = audio_in.shape[0]
     k = beam_size
-    bk = b * k
+    c = max_candidates or k  # finished-sequence bank slots per batch row
     n_init = initial_tokens.shape[1]
-    device = audio_in.device
 
     if audio_is_features:
         audio_features = audio_in
     else:
         audio_features = encoder_forward(model.encoder, audio_in, cfg.n_head_audio)
-    cross_k, cross_v = precompute_cross_kv(model.decoder, audio_features, cfg.n_head)
-    if cfg.kv_quant:
-        cross_k = [quantize_kv(x) for x in cross_k]
-        cross_v = [quantize_kv(x) for x in cross_v]
-    self_k, self_v = init_kv_cache_like(model, bk, cfg, n_init=n_init)
-    cache = KVCache(self_k, self_v, cross_k, cross_v)
-
+    cross_k, cross_v = _cross_kv(model, audio_features, cfg)
+    dec = model.decoder
+    cache_len = _cache_len(cfg, n_init)
+    shape = ("beam", b, k, c, cache_len, audio_features.shape[1], _step_config(cfg))
+    make = lambda: _BeamBuffers.allocate(dec, cross_k, cross_v, b, k, c, cache_len, cfg)
     init_bk = initial_tokens.repeat_interleave(k, dim=0)  # same prefix everywhere
-    logits = decoder_forward(
-        model.decoder, init_bk, cache, 0, cfg.n_head, beam_groups=k
-    )
-    probs_at_sot = torch.softmax(logits[::k, cfg.sot_index].float(), dim=-1)
-    no_speech_probs = probs_at_sot[:, cfg.no_speech_token]
-    last_logits = logits[:, -1]  # [B·K, V]
+    with step_runner(model, capture, shape, make) as (s, run):
+        s.start(cross_k, cross_v, init_bk, k, cfg.eot)
+        del cross_k, cross_v
+        # the prefill: one eager pass at offset 0
+        logits = decoder_forward(dec, init_bk, s.cache, 0, cfg.n_head, beam_groups=k)
+        probs_at_sot = torch.softmax(logits[::k, cfg.sot_index].float(), dim=-1)
+        no_speech_probs = probs_at_sot[:, cfg.no_speech_token]
+        s.last_logits.copy_(logits[:, -1])  # [B·K, V]
+        del logits
 
-    state = F.init_filter_state(init_bk)
-    tokens_buf = torch.full((bk, cfg.sample_len), cfg.eot, dtype=torch.int64, device=device)
-    # only beam 0 is live at first (identical prefixes would collapse)
-    scores = torch.where(
-        torch.arange(bk, device=device) % k == 0, 0.0, NEG_INF
-    ).float()
-
-    c = max_candidates or k  # finished-sequence bank slots per batch row
-    # +1 dummy slot absorbs the dropped writes
-    bank_tokens = torch.full(
-        (b, c + 1, cfg.sample_len), cfg.eot, dtype=torch.int64, device=device
-    )
-    bank_scores = torch.full((b, c + 1), NEG_INF, dtype=torch.float32, device=device)
-    bank_lengths = torch.zeros((b, c + 1), dtype=torch.int64, device=device)
-    bank_count = torch.zeros((b,), dtype=torch.int64, device=device)
-
-    vocab = last_logits.shape[-1]
-    m = 2 * k  # at most one EOT per beam, so the 2K best hold ≥ K non-EOT
-    b_idx = torch.arange(b, device=device)[:, None]
-    n_layer = len(cache.self_k)
-    n_sampled = 0
-    # one host read per step: the loop stops once every row's bank is full
-    while n_sampled < cfg.sample_len and not bool((bank_count >= c).all()):
-        logits = _apply_filters(last_logits, state, cfg)  # [B·K, V]
-        logprobs = torch.log_softmax(logits, dim=-1)
-        cand = (scores[:, None] + logprobs).reshape(b, k * vocab)
-        top_scores, top_idx = _top_candidates(cand, m)  # [B, M], best first
-        src_beam = top_idx // vocab
-        token = top_idx % vocab
-        is_eot = token == cfg.eot
-
-        # bank the EOT candidates (finished sequences), best first
-        write, slot_c = _bank_writes(is_eot, bank_count, k, c)
-        # the source beam's sequence at EOT time: [B, M, L]
-        bank_tokens[b_idx, slot_c] = tokens_buf.reshape(b, k, -1)[b_idx, src_beam]
-        bank_scores[b_idx, slot_c] = torch.where(write, top_scores, NEG_INF)
-        bank_lengths[b_idx, slot_c] = torch.where(write, n_sampled, 0)
-        bank_count = bank_count + write.sum(dim=-1)
-
-        # the K best non-EOT candidates continue as the live beams; a stable
-        # sort on the EOT flag keeps score order within each class
-        order = torch.argsort(is_eot.int(), dim=-1, stable=True)
-        sel = order[:, :k]
-        new_scores = top_scores.gather(1, sel)
-        new_src = src_beam.gather(1, sel)
-        new_tok = token.gather(1, sel)
-
-        gathered = _gather_beams(
-            [tokens_buf, *state[:4], *cache.self_k, *cache.self_v], new_src, b, k
+        n_sampled = 0
+        # one host read per step: the loop stops once every row's bank is full
+        while n_sampled < cfg.sample_len and not bool((s.bank_count >= c).all()):
+            run(lambda: _beam_step(dec, s, cfg, k, c))
+            n_sampled += 1
+        out = (
+            s.bank_tokens[:, :c].clone(),
+            s.bank_lengths[:, :c].clone(),
+            s.bank_scores[:, :c].clone(),
+            s.bank_count.clamp(max=c),
+            s.tokens.reshape(b, k, -1).clone(),
+            s.scores.reshape(b, k).clone(),
         )
-        tokens_buf = gathered[0]
-        state = F.FilterState(*gathered[1:5], step=state.step)
-        cache.self_k[:] = gathered[5 : 5 + n_layer]
-        cache.self_v[:] = gathered[5 + n_layer :]
-        del gathered
-
-        token_flat = new_tok.reshape(-1)
-        scores = new_scores.reshape(-1)
-        tokens_buf[:, n_sampled] = token_flat
-        state = F.update_filter_state(state, token_flat, cfg.timestamp_begin)
-        last_logits = decoder_forward(
-            model.decoder, token_flat[:, None], cache, n_init + n_sampled,
-            cfg.n_head, beam_groups=k,
-        )[:, -1]
-        n_sampled += 1
-
-    return (
-        bank_tokens[:, :c],
-        bank_lengths[:, :c],
-        bank_scores[:, :c],
-        bank_count.clamp(max=c),
-        tokens_buf.reshape(b, k, -1),
-        scores.reshape(b, k),
-        n_sampled,
-        no_speech_probs,
-        audio_features,
-    )
+    return (*out, n_sampled, no_speech_probs, audio_features)
 
 
 def rank_beams(

@@ -9,15 +9,21 @@ self-attention cache sized to the decode budget, and finished rows that keep
 "decoding" EOT instead of being gathered out.
 
 The JAX package runs the loop as one ``lax.while_loop`` on the device. Here
-it is a Python loop that reads ``finished.all()`` back once per step — one
-host sync per token. Capturing the step in a CUDA graph is a later change.
+the host keeps the loop and reads ``finished.all()`` back once per step,
+and on one CUDA device each step after the prefill is one replay of a
+captured CUDA graph (``step_graph.py``): the step's body reads and writes
+static buffers in place (``_SampleBuffers``: the token index, offset and
+filter step are device tensors; a sampled step's uniform draw is made
+before the replay, into a buffer). The CPU runs the same body uncaptured,
+as do the decodes that stay eager on the card: meshed and tensor-parallel
+decodes (below).
 
 With a mesh active (``parallel.use_mesh``) whose data axis divides the
 batch (after ``best_of`` tiling), ``decode_dispatch`` cuts the rows into one
 contiguous slice per data row and decodes each on its row's model replica,
-on a worker thread of its own (JAX's ``_shard_data``); a sampled split
-reads its rows of the whole batch's draws (``_SharedNoise``), so it samples
-the unsplit decode's tokens.
+on a worker thread of its own (JAX's ``_shard_data``), uncaptured; a
+sampled split reads its rows of the whole batch's draws (``_SharedNoise``),
+so it samples the unsplit decode's tokens.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ import numpy as np
 import torch
 
 from whisperx_tpu_torch.decoding import filters as F
+from whisperx_tpu_torch.decoding.step_graph import load_cache, step_runner
 from whisperx_tpu_torch.models.whisper.model import (
     KVCache,
     decoder_forward,
@@ -122,13 +129,120 @@ def _apply_filters(logits, state, cfg: _StaticConfig):
     return logits
 
 
-def init_kv_cache_like(model, batch: int, cfg: _StaticConfig, n_init: int = 0):
-    """Self-attention cache sized to the decode budget (prefix + sample_len,
-    rounded up to 64), not the full n_text_ctx — every step reads the whole
-    cache, so unused slots cost memory bandwidth."""
+def _step_config(cfg: _StaticConfig) -> _StaticConfig:
+    """The part of ``cfg`` a step reads, for a graph's key: the SOT token's
+    index, which moves with the prompt's length, is the prefill's alone."""
+    return dataclasses.replace(cfg, sot_index=-1)
+
+
+def _cache_len(cfg: _StaticConfig, n_init: int) -> int:
+    """The self-attention cache's length: the decode budget (prefix +
+    sample_len) rounded up to 64, not the full n_text_ctx — every step
+    reads the whole cache, so unused slots cost memory bandwidth."""
     budget = n_init + cfg.sample_len + 1
-    cache_len = min(cfg.n_text_ctx, -(-budget // 64) * 64)
-    return new_self_cache(model.decoder, batch, cache_len, cfg.n_head)
+    return min(cfg.n_text_ctx, -(-budget // 64) * 64)
+
+
+def init_kv_cache_like(model, batch: int, cfg: _StaticConfig, n_init: int = 0):
+    """Self-attention cache sized to the decode budget (``_cache_len``)."""
+    return new_self_cache(model.decoder, batch, _cache_len(cfg, n_init), cfg.n_head)
+
+
+def _cross_kv(model, audio_features: torch.Tensor, cfg: _StaticConfig):
+    """Per-layer cross-attention K/V lists, int8 ``QuantizedKV`` when
+    ``cfg.kv_quant``."""
+    cross_k, cross_v = precompute_cross_kv(model.decoder, audio_features, cfg.n_head)
+    if cfg.kv_quant:
+        cross_k = [quantize_kv(x) for x in cross_k]
+        cross_v = [quantize_kv(x) for x in cross_v]
+    return cross_k, cross_v
+
+
+def _state_buffers(rows: int, device) -> F.FilterState:
+    i64 = dict(dtype=torch.int64, device=device)
+    return F.FilterState(
+        *(torch.empty((rows,), **i64) for _ in range(3)),
+        has_timestamp=torch.empty((rows,), dtype=torch.bool, device=device),
+        step=torch.empty((rows,), **i64),
+    )
+
+
+def _reset_state(state: F.FilterState, initial_tokens: torch.Tensor) -> None:
+    """A decode's start on a state of [B] tensors: ``init_filter_state``."""
+    init = F.init_filter_state(initial_tokens)
+    for dst, src in zip(state[:4], init[:4]):
+        dst.copy_(src)
+    state.step.zero_()
+
+
+@dataclass
+class _SampleBuffers:
+    """What a greedy or sampled step reads and writes, in place: the
+    static buffers of a captured step (``step_graph``). ``noise`` holds the
+    step's uniform draw (sampled decodes only), made before the step."""
+
+    cache: KVCache
+    state: F.FilterState  # of [B] tensors: ``step`` counts sampled tokens
+    last_logits: torch.Tensor  # [B, V] f32
+    tokens: torch.Tensor  # [B, sample_len] int64
+    finished: torch.Tensor  # [B] bool
+    sum_logprobs: torch.Tensor  # [B] f32
+    offset: torch.Tensor  # [B] int64: the next token's position
+    temperature: torch.Tensor  # [] f32
+    noise: Optional[torch.Tensor]  # [B, V] f32
+
+    @classmethod
+    def allocate(cls, dec, cross_k, cross_v, rows: int, cache_len: int, cfg: _StaticConfig):
+        """Buffers for ``rows`` rows around this decode's cross-KV."""
+        device = dec.tok_emb.device
+        vocab = dec.tok_emb.shape[0]
+        f32 = dict(dtype=torch.float32, device=device)
+        return cls(
+            cache=KVCache(*new_self_cache(dec, rows, cache_len, cfg.n_head), list(cross_k), list(cross_v)),
+            state=_state_buffers(rows, device),
+            last_logits=torch.empty((rows, vocab), **f32),
+            tokens=torch.empty((rows, cfg.sample_len), dtype=torch.int64, device=device),
+            finished=torch.empty((rows,), dtype=torch.bool, device=device),
+            sum_logprobs=torch.empty((rows,), **f32),
+            offset=torch.empty((rows,), dtype=torch.int64, device=device),
+            temperature=torch.empty((), **f32),
+            noise=None if cfg.greedy else torch.empty((rows, vocab), **f32),
+        )
+
+    def start(self, cross_k, cross_v, initial_tokens, temperature: float, eot: int) -> None:
+        load_cache(self.cache, cross_k, cross_v)
+        _reset_state(self.state, initial_tokens)
+        self.tokens.fill_(eot)
+        self.finished.zero_()
+        self.sum_logprobs.zero_()
+        self.offset.fill_(initial_tokens.shape[1])
+        self.temperature.fill_(temperature)
+
+
+def _sample_step(dec, s: _SampleBuffers, cfg: _StaticConfig) -> None:
+    """One greedy or sampled step over ``s``, in place: filter, pick, bank
+    the log-probability, write the token at the state's ``step``, advance
+    the state, and run the decoder on the token at ``s.offset``. Reads no
+    value back to the host (a captured step's body)."""
+    logits = _apply_filters(s.last_logits, s.state, cfg)
+    if cfg.greedy:
+        sampled = torch.argmax(logits, dim=-1)
+    else:
+        # Gumbel-max draw from softmax(logits / T): tokens the filters set
+        # to -inf are never drawn
+        u = s.noise
+        gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
+        sampled = torch.argmax(logits / s.temperature + gumbel, dim=-1)
+    logprobs = torch.log_softmax(logits, dim=-1)
+    step_lp = torch.gather(logprobs, 1, sampled[:, None])[:, 0]
+    s.sum_logprobs.add_(torch.where(s.finished, 0.0, step_lp))
+    sampled = torch.where(s.finished, cfg.eot, sampled)
+    s.tokens.scatter_(1, s.state.step[:, None], sampled[:, None])
+    s.finished.logical_or_(sampled == cfg.eot)
+    F.advance_filter_state_(s.state, sampled, cfg.timestamp_begin)
+    logits = decoder_forward(dec, sampled[:, None], s.cache, s.offset, cfg.n_head)
+    s.last_logits.copy_(logits[:, -1])
+    s.offset.add_(1)
 
 
 @torch.inference_mode()
@@ -141,12 +255,16 @@ def _decode(
     generator: Optional[torch.Generator],
     audio_is_features: bool,
     noise: Optional[Callable[[int, tuple], torch.Tensor]] = None,
+    capture: bool = True,
 ):
     """Full batched decode. Returns (tokens [B, sample_len], lengths [B],
     sum_logprobs [B], no_speech_probs [B], audio_features, steps run).
     ``noise(step, shape)``: the uniform draw of a sampled step, by default
     from ``generator`` (a data-parallel slice reads its rows of the whole
-    batch's draw instead, ``_SharedNoise``)."""
+    batch's draw instead, ``_SharedNoise``), made on the host's order of
+    steps before each step. ``capture``: each step after the prefill is a
+    replay of a captured graph (``step_graph``) where the model allows it
+    (CUDA, no tensor-parallel block); False runs the same body uncaptured."""
     b = audio_in.shape[0]
     n_init = initial_tokens.shape[1]
     device = audio_in.device
@@ -157,46 +275,29 @@ def _decode(
         audio_features = audio_in
     else:
         audio_features = encoder_forward(model.encoder, audio_in, cfg.n_head_audio)
-    cross_k, cross_v = precompute_cross_kv(model.decoder, audio_features, cfg.n_head)
-    if cfg.kv_quant:
-        cross_k = [quantize_kv(x) for x in cross_k]
-        cross_v = [quantize_kv(x) for x in cross_v]
-    self_k, self_v = init_kv_cache_like(model, b, cfg, n_init=n_init)
-    cache = KVCache(self_k, self_v, cross_k, cross_v)
+    cross_k, cross_v = _cross_kv(model, audio_features, cfg)
+    dec = model.decoder
+    cache_len = _cache_len(cfg, n_init)
+    shape = ("sample", b, cache_len, audio_features.shape[1], _step_config(cfg))
+    make = lambda: _SampleBuffers.allocate(dec, cross_k, cross_v, b, cache_len, cfg)
+    with step_runner(model, capture, shape, make) as (s, run):
+        s.start(cross_k, cross_v, initial_tokens, temperature, cfg.eot)
+        del cross_k, cross_v
+        # the prefill: one eager pass at offset 0
+        logits = decoder_forward(dec, initial_tokens, s.cache, 0, cfg.n_head)
+        probs_at_sot = torch.softmax(logits[:, cfg.sot_index].float(), dim=-1)
+        no_speech_probs = probs_at_sot[:, cfg.no_speech_token]
+        s.last_logits.copy_(logits[:, -1])
+        del logits
 
-    logits = decoder_forward(model.decoder, initial_tokens, cache, 0, cfg.n_head)
-    probs_at_sot = torch.softmax(logits[:, cfg.sot_index].float(), dim=-1)
-    no_speech_probs = probs_at_sot[:, cfg.no_speech_token]
-    last_logits = logits[:, -1]
-
-    state = F.init_filter_state(initial_tokens)
-    tokens_buf = torch.full((b, cfg.sample_len), cfg.eot, dtype=torch.int64, device=device)
-    finished = torch.zeros((b,), dtype=torch.bool, device=device)
-    sum_logprobs = torch.zeros((b,), dtype=torch.float32, device=device)
-
-    n_sampled = 0
-    # one host sync per step: the loop stops once every row has emitted EOT
-    while n_sampled < cfg.sample_len and not bool(finished.all()):
-        logits = _apply_filters(last_logits, state, cfg)
-        if cfg.greedy:
-            sampled = torch.argmax(logits, dim=-1)
-        else:
-            # Gumbel-max draw from softmax(logits / T): tokens the filters
-            # set to -inf are never drawn
-            u = noise(n_sampled, logits.shape)
-            gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
-            sampled = torch.argmax(logits / temperature + gumbel, dim=-1)
-        logprobs = torch.log_softmax(logits, dim=-1)
-        step_lp = torch.gather(logprobs, 1, sampled[:, None])[:, 0]
-        sum_logprobs = sum_logprobs + torch.where(finished, 0.0, step_lp)
-        sampled = torch.where(finished, cfg.eot, sampled)
-        tokens_buf[:, n_sampled] = sampled
-        finished = finished | (sampled == cfg.eot)
-        state = F.update_filter_state(state, sampled, cfg.timestamp_begin)
-        last_logits = decoder_forward(
-            model.decoder, sampled[:, None], cache, n_init + n_sampled, cfg.n_head
-        )[:, -1]
-        n_sampled += 1
+        n_sampled = 0
+        # one host read per step: the loop stops once every row has emitted EOT
+        while n_sampled < cfg.sample_len and not bool(s.finished.all()):
+            if s.noise is not None:
+                s.noise.copy_(noise(n_sampled, tuple(s.noise.shape)))
+            run(lambda: _sample_step(dec, s, cfg))
+            n_sampled += 1
+        tokens_buf, sum_logprobs = s.tokens.clone(), s.sum_logprobs.clone()
 
     is_eot = tokens_buf == cfg.eot
     # rows that never emitted EOT ran the full sample_len
@@ -391,11 +492,18 @@ def decode_dispatch(
     tokenizer=None,
     generator: Optional[torch.Generator] = None,
     keep_audio_features: bool = False,
+    _eager: bool = False,
 ) -> dict:
     """Run the decode and return a handle of device tensors, not yet read
     back; ``decode_finalize`` converts them. Sampling at temperature > 0
     draws from ``generator`` (a ``torch.Generator`` on the model's
-    device), which the caller must pass."""
+    device), which the caller must pass.
+
+    On one CUDA device each step after the prefill replays a captured graph
+    (``step_graph``); a decode split over a mesh's data rows, or of a
+    tensor-parallel model, and every CPU decode run the same step body
+    uncaptured. ``_eager`` runs it uncaptured on the card too: the
+    yardstick the captured decode is held against, and nothing else."""
     if options.temperature > 0 and generator is None:
         raise ValueError(
             "temperature > 0 samples: pass generator=torch.Generator(device)"
@@ -498,14 +606,14 @@ def decode_dispatch(
         if replicas is None:
             beam_device = _beam_decode(
                 model, audio_in, initial_arr, cfg, k, max_candidates,
-                audio_is_features=shared_features is not None,
+                audio_is_features=shared_features is not None, capture=not _eager,
             )
         else:
             beam_device = _split_rows(
                 replicas, (audio_in, initial_arr),
                 lambda j, rep, audio, init: _beam_decode(
                     rep, audio, init, cfg, k, max_candidates,
-                    audio_is_features=shared_features is not None,
+                    audio_is_features=shared_features is not None, capture=False,
                 ),
                 mel.device,
             )
@@ -525,7 +633,7 @@ def decode_dispatch(
     if replicas is None:
         out = _decode(
             model, audio_in, initial_arr, temperature, cfg, generator,
-            audio_is_features=shared_features is not None,
+            audio_is_features=shared_features is not None, capture=not _eager,
         )
     else:
         shared = _SharedNoise(generator, b * n_cand, mel.device, len(replicas))
@@ -535,7 +643,7 @@ def decode_dispatch(
             try:
                 return _decode(
                     rep, audio, init, temperature, cfg, None,
-                    audio_is_features=shared_features is not None,
+                    audio_is_features=shared_features is not None, capture=False,
                     noise=lambda step, shape: shared.rows(
                         j, j * per, (j + 1) * per, step, shape
                     ).to(audio.device),

@@ -2,11 +2,11 @@
 
 Counterpart of ``whisperx_tpu/decoding/filters.py``: SuppressBlank /
 SuppressTokens / ApplyTimestampRules as ``[B, V] -> [B, V]`` maps over f32
-logits, driven by a small ``FilterState``. The state's ``step`` is a Python
-int where every row has sampled as many tokens (the decode loop runs on the
-host, so branching on it costs nothing), or a [B] tensor where rows advance
-at their own pace (the speculative decode, whose rows accept their own
-number of tokens).
+logits, driven by a small ``FilterState``. The state's ``step`` is a [B]
+tensor in the decode loops (``decode.py``, ``beam.py``: a captured step
+may hold no Python value that changes from step to step; the speculative
+decode's rows advance at their own pace), or a Python int where every row
+has sampled as many tokens and the caller branches on it on the host.
 """
 
 from __future__ import annotations
@@ -57,6 +57,19 @@ def update_filter_state(
         has_timestamp=state.has_timestamp | is_ts,
         step=state.step + 1,
     )
+
+
+def advance_filter_state_(
+    state: FilterState, sampled: torch.Tensor, timestamp_begin: int
+) -> None:
+    """``update_filter_state`` in place, on a state of [B] tensors: the
+    decode loops' static buffers, which a captured step rewrites."""
+    is_ts = sampled >= timestamp_begin
+    state.penult_token.copy_(state.last_token)
+    state.last_token.copy_(sampled)
+    state.last_timestamp.copy_(torch.where(is_ts, sampled, state.last_timestamp))
+    state.has_timestamp.logical_or_(is_ts)
+    state.step.add_(1)
 
 
 @functools.lru_cache(maxsize=64)

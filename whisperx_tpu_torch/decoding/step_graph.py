@@ -1,0 +1,257 @@
+"""The decode step as one captured CUDA graph, replayed once per token.
+
+Counterpart of the JAX package's ``lax.while_loop`` decodes
+(``whisperx_tpu/decoding/decode.py::_decode_jit``, ``beam.py::
+_beam_decode_jit``), which run every step on the device with no host read.
+Here the host keeps the loop and its one read per step (``finished.all()``,
+or the beam banks' counts), and each step is one replay of a graph captured
+from the step's static body: about 1,600 launches from Python become one.
+
+A step body reads and writes only static buffers, in place: the self-KV
+cache, the cross-KV, the filter state, the token buffer and the loop's
+counters (``decode.py::_SampleBuffers``, ``beam.py::_BeamBuffers``). No
+Python value inside it depends on the step number: the offset, the filter
+state's ``step`` and the token index are device tensors. The CPU, and the
+decodes that stay eager on the card (meshed and tensor-parallel decodes),
+run the same body uncaptured, on buffers of their own.
+
+On the card each decoder keeps a ``GraphCache``: up to ``MAX_ENTRIES``
+idle ``StepGraph`` entries, the least recently used evicted first, each
+checked out by one decode at a time, so two threads never replay one
+entry's buffers at once. An entry's first step runs uncaptured on the
+cache's capture stream (the warm-up: the kernels' nvcc build and their
+``cudaFuncSetAttribute`` calls, cuBLAS's handle and its workspace for that
+stream); its second is captured there (``capture_error_mode=
+"thread_local"``, so other threads may go on working) and every step after
+is a replay. A graph reads the decoder's weights by address, so the key
+holds the address, dtype and shape of every decoder tensor: a quantized,
+placed, moved or reloaded decoder misses, and the entries of its old
+weights are dropped. The cache lives on the decoder and goes with it.
+
+Kernel launches are counted as on the eager path: during a capture the
+wrappers' counts go to the entry's record (``ops.recording_launches``),
+and each replay adds the record once (``ops.add_launches``).
+
+A failed capture or replay raises; there is no eager fallback on the card.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import itertools
+import threading
+from typing import Callable, List, Optional
+
+import torch
+
+from whisperx_tpu_torch.ops import add_launches, recording_launches
+from whisperx_tpu_torch.ops.cross_attention_decode import use_cross_decode_kernel
+from whisperx_tpu_torch.utils.precision import reference_matmul
+
+MAX_ENTRIES = 4
+
+# one warm-up or capture at a time in the process: both run on a cache's
+# capture stream, and a capture must record only its own step's work
+_CAPTURE_LOCK = threading.Lock()
+_CACHE_LOCK = threading.Lock()  # makes each decoder's cache once
+
+
+def _leaves(x) -> list:
+    """The tensors of a nested structure: lists, tuples (``QuantizedKV``,
+    ``FilterState``) and dataclasses (``KVCache``, the step buffers)."""
+    if torch.is_tensor(x):
+        return [x]
+    if isinstance(x, (list, tuple)):
+        return [t for y in x for t in _leaves(y)]
+    if hasattr(x, "__dataclass_fields__"):
+        return _leaves(list(vars(x).values()))
+    return []
+
+
+def tensor_bytes(x) -> int:
+    return sum(t.numel() * t.element_size() for t in _leaves(x))
+
+
+class StepGraph:
+    """One cache entry: a decode's static ``buffers`` and the graph of its
+    step. ``launches`` is what one replay launches, ``(fn, attr) → n``."""
+
+    def __init__(self, key, buffers, stream: Optional["torch.cuda.Stream"] = None):
+        self.key = key
+        self.buffers = buffers
+        self.stream = stream  # the cache's capture stream
+        self.graph = None
+        self.launches: dict = {}
+        self.warmed = False
+        self.done = None  # event after the last decode's work on the buffers
+        self.nbytes = tensor_bytes(buffers)
+        self.captures = self.replays = 0  # since checkout
+
+    def step(self, body: Callable[[], None]) -> None:
+        """One decode step: a replay. The entry's first step runs ``body``
+        uncaptured on the capture stream (the warm-up), its second captures
+        it there before the replay."""
+        scope = (
+            torch.cuda.device(self.stream.device) if self.stream is not None
+            else contextlib.nullcontext()
+        )
+        with scope:
+            if self.graph is None:
+                with _CAPTURE_LOCK:
+                    if not self.warmed:
+                        self._warm_up(body)
+                        return
+                    self._capture(body)
+            self.graph.replay()
+        add_launches(self.launches)
+        self.replays += 1
+
+    def _warm_up(self, body) -> None:
+        current = torch.cuda.current_stream()
+        self.stream.wait_stream(current)
+        with torch.cuda.stream(self.stream), reference_matmul():
+            body()
+        current.wait_stream(self.stream)
+        self.warmed = True
+
+    def _capture(self, body) -> None:
+        graph = torch.cuda.CUDAGraph()
+        self.stream.wait_stream(torch.cuda.current_stream())
+        with recording_launches() as record, reference_matmul():
+            with torch.cuda.graph(graph, stream=self.stream, capture_error_mode="thread_local"):
+                body()
+        self.graph, self.launches = graph, record
+        self.captures += 1
+
+
+class GraphCache:
+    """A decoder's idle ``StepGraph`` entries, the most recently used first,
+    at most ``max_entries``. ``checkout`` hands an entry to one decode,
+    which gives it back with ``checkin``; an entry out is in no list, so no
+    other decode can get it."""
+
+    def __init__(self, max_entries: int = MAX_ENTRIES):
+        self.max_entries = max_entries
+        self._lock = threading.Lock()
+        self._idle: List[StepGraph] = []
+        self._weights = None  # the fingerprint the idle entries were captured on
+        self._stream = None
+        self.captures = self.replays = 0  # over every checked-in decode
+
+    def __reduce__(self):  # a copied or pickled model starts with no graphs
+        return (GraphCache, (self.max_entries,))
+
+    def checkout(self, weights, key, make: Callable[[], object], device: torch.device) -> StepGraph:
+        """The idle entry of ``key`` captured on ``weights``, or a new one
+        around ``make()``'s buffers. Entries of other weights are dropped."""
+        entry = None
+        with self._lock:
+            if weights != self._weights:
+                self._idle.clear()
+                self._weights = weights
+            for i, e in enumerate(self._idle):
+                if e.key == key:
+                    entry = self._idle.pop(i)
+                    break
+            if self._stream is None and device.type == "cuda":
+                self._stream = torch.cuda.Stream(device)
+        if entry is None:
+            return StepGraph(key, make(), self._stream)
+        if entry.done is not None:  # the last decode's reads of its outputs
+            torch.cuda.current_stream(device).wait_event(entry.done)
+        entry.captures = entry.replays = 0
+        return entry
+
+    def checkin(self, weights, entry: StepGraph) -> None:
+        if entry.stream is not None:
+            entry.done = torch.cuda.Event()
+            entry.done.record(torch.cuda.current_stream(entry.stream.device))
+        with self._lock:
+            self.captures += entry.captures
+            self.replays += entry.replays
+            if weights != self._weights:
+                return  # captured on weights that are gone
+            self._idle.insert(0, entry)
+            del self._idle[self.max_entries:]
+
+    def stats(self) -> dict:
+        """Captures and replays of the checked-in decodes, the idle entries
+        and their static buffers' bytes."""
+        with self._lock:
+            return {
+                "captures": self.captures,
+                "replays": self.replays,
+                "entries": len(self._idle),
+                "static_bytes": sum(e.nbytes for e in self._idle),
+            }
+
+
+def graph_cache(dec) -> GraphCache:
+    """The ``GraphCache`` of a decoder module, made at first use."""
+    cache = getattr(dec, "_step_graphs", None)
+    if cache is None:
+        with _CACHE_LOCK:
+            cache = getattr(dec, "_step_graphs", None)
+            if cache is None:
+                cache = dec._step_graphs = GraphCache()
+    return cache
+
+
+def weights_fingerprint(dec) -> tuple:
+    """Name, address, dtype and shape of every tensor of the decoder: what
+    a captured step reads by address."""
+    return tuple(
+        (name, t.data_ptr(), t.dtype, tuple(t.shape))
+        for name, t in itertools.chain(dec.named_parameters(), dec.named_buffers())
+    )
+
+
+def graph_key(dec, shape: tuple) -> tuple:
+    """The cache key of a step: the decode's ``shape`` key (kind, rows,
+    cache length, static configuration...), the decoder's device and dtype,
+    and the cross-decode opt-in's state, which picks K3 inside the step."""
+    device = dec.tok_emb.device
+    return (*shape, device, dec.tok_emb.dtype, use_cross_decode_kernel(device))
+
+
+def graphable(model) -> bool:
+    """Whether a decode of ``model`` replays captured steps: on CUDA, when
+    no decoder block is split over devices (a tensor-parallel decode stays
+    eager)."""
+    dec = model.decoder
+    return dec.tok_emb.is_cuda and all(blk.tp is None for blk in dec.blocks)
+
+
+@contextlib.contextmanager
+def step_runner(model, capture: bool, shape: tuple, make: Callable[[], object]):
+    """Yields ``(buffers, run)``: ``run(body)`` performs one decode step on
+    ``buffers``. With ``capture`` on a ``graphable`` model: a checked-out
+    cache entry's buffers and its replay; otherwise ``make()``'s buffers and
+    ``body`` called as it is (the CPU, meshed decodes, the yardstick).
+    The entry goes back to the cache only after a decode that raised
+    nothing."""
+    if not (capture and graphable(model)):
+        def run(body):
+            with reference_matmul():
+                body()
+
+        yield make(), run
+        return
+    dec = model.decoder
+    cache = graph_cache(dec)
+    weights = weights_fingerprint(dec)
+    entry = cache.checkout(weights, graph_key(dec, shape), make, dec.tok_emb.device)
+    yield entry.buffers, entry.step
+    cache.checkin(weights, entry)
+
+
+def load_cache(cache, cross_k, cross_v) -> None:
+    """A decode's start on its KV buffers: the self-KV zeroed (JAX's
+    ``init_kv_cache_like``) and this decode's cross-KV copied in, unless the
+    buffers are this decode's own tensors."""
+    for t in _leaves([cache.self_k, cache.self_v]):
+        t.zero_()
+    for dst, src in zip((*cache.cross_k, *cache.cross_v), (*cross_k, *cross_v)):
+        if dst is not src:
+            for d, s in zip(_leaves(dst), _leaves(src)):
+                d.copy_(s)

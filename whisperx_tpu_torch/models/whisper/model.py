@@ -656,8 +656,11 @@ def decoder_forward(
         for s, (dev, h0, h1) in enumerate(lay.heads):
             sk, sv = _part(cache.self_k[i], s), _part(cache.self_v[i], s)
             at = tuple(w.to(dev) if torch.is_tensor(w) else w for w in write_at)
-            sk[at] = _split_heads(ks[s], h1 - h0)
-            sv[at] = _split_heads(vs[s], h1 - h0)
+            # in the cache's dtype: a quantized linear with an f32 bias (a
+            # converted int8 checkpoint's) returns f32, which a per-row
+            # index write would refuse and a slice write casts
+            sk[at] = _split_heads(ks[s], h1 - h0).to(sk.dtype)
+            sv[at] = _split_heads(vs[s], h1 - h0).to(sv.dtype)
             a = qkv_attention(_split_heads(qs[s], h1 - h0), sk, sv, mask=self_mask.to(dev))
             attn.append(_merge_heads(a))
         x = x + _row(blk.attn.out, attn)

@@ -1,17 +1,46 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain PyTorch version."""
 
+import contextlib
 import os
 import threading
 
 _COUNT_LOCK = threading.Lock()
+_CAPTURING = threading.local()  # .launches: the record of a capture on this thread
 
 
 def count_launch(fn, attr: str = "launches") -> None:
     """Add one to ``fn.<attr>``, a kernel's launch count. Under a lock: the
     wrappers run from several threads at once when serving, and a bare
-    ``+= 1`` there may lose an update."""
+    ``+= 1`` there may lose an update. Inside ``recording_launches`` on this
+    thread (a CUDA graph capture, which launches nothing) the launch goes
+    to the capture's record instead: each replay of the graph adds it with
+    ``add_launches``."""
+    record = getattr(_CAPTURING, "launches", None)
+    if record is not None:
+        record[(fn, attr)] = record.get((fn, attr), 0) + 1
+        return
     with _COUNT_LOCK:
         setattr(fn, attr, getattr(fn, attr) + 1)
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Inside, on this thread: the wrappers' launches are recorded in the
+    yielded dict, ``(fn, attr) → n``, and not counted."""
+    record = {}
+    _CAPTURING.launches = record
+    try:
+        yield record
+    finally:
+        _CAPTURING.launches = None
+
+
+def add_launches(record: dict) -> None:
+    """Count the launches of a ``recording_launches`` record once more, under
+    the counters' lock: one replay of the captured graph."""
+    with _COUNT_LOCK:
+        for (fn, attr), n in record.items():
+            setattr(fn, attr, getattr(fn, attr) + n)
 
 
 def refuse_xla_route(switch: str, asked: bool, tensor) -> None:
