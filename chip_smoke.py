@@ -71,14 +71,21 @@ Phases, each of which passes or raises (the script then exits non-zero):
      the decode profile of phase 5 for that int8 model with 5 beams;
   8. speculative decoding (after 5b, on the main path's model and 120 s):
      ``transcribe(..., draft_model="self:4", spec_gamma=4)`` at one
-     temperature, then the same with a ``zero_tail_model(model, 4)`` target
-     (acceptance ≈ 1), and a plain greedy decode with ``kv_quant=False``:
-     decode wall time, target passes, proposed, accepted, tokens emitted,
-     ms per emitted token; K1 32 × the decodes (the draft shares the
-     encoder); the share of rows equal to greedy's is printed;
+     temperature, each iteration a replay of a captured CUDA graph, three
+     times in turns: captured, uncaptured (``_eager``, the yardstick),
+     captured; the three must give the same bits (tokens, n, sum_logprob,
+     proposed, accepted, target passes); then a ``zero_tail_model(model,
+     4)`` target (acceptance ≈ 1), and a plain greedy decode with
+     ``kv_quant=False``: decode wall time, target passes, proposed,
+     accepted, tokens emitted, ms per emitted token and per iteration;
+     ``[graph]`` lines (captures, replays, static bytes), the phase's peak
+     memory; K1 32 × the decodes (the draft shares the encoder); the share
+     of rows equal to greedy's is printed;
   8b. speculative int8 (after 6, on its int8 model and the CLI's 60 s,
-     48 tokens a row): ``self:4``; K4's launches per shape as the code implies (draft steps
-     at M 8, verify passes at M 40), Σ launches × ms against the bound;
+     48 tokens a row): ``self:4``, captured, then uncaptured: the same
+     bits; K4's launches per shape as the code implies in both (draft steps
+     at M 8, verify passes at M 40; a replay adds what its capture
+     recorded), Σ launches × ms against the bound;
   11. serving (after 8, on the main path's model, its weights shared; one
      temperature, as ``serve --temperature_increment_on_fallback 0``):
      first two threads decode batches of one shape on the model at once,
@@ -172,8 +179,10 @@ Phases, each of which passes or raises (the script then exits non-zero):
      of SIGTERM.
   13. scale-out (after 11, on the main path's model; one card, whose
      device repeats in every mesh): ``DataParallelPipeline`` over two
-     replicas on 60 s at 48 tokens a row (segments equal to the plain
-     pipeline's at each replica's batch; K1 32 × 2 per decode); the model
+     replicas on 60 s at 48 tokens a row, each replica's steps replays of
+     a captured graph on a cache entry of its own (replays on at least two
+     entries; the wall beside the plain pipeline's; segments equal to the
+     plain pipeline's at each replica's batch; K1 32 × 2 per decode); the model
      split ``n_model=2``: bf16 encoder output and first-step logits within
      2x the whole model's own bf16-vs-f32 error, K1 64 per encoder pass; the
      f32 copy's greedy tokens (4 windows, 24 steps, TF32 off) identical to
@@ -206,7 +215,9 @@ package beside this file, it exits non-zero and prints no result.
     python3 chip_smoke.py --kernels
 
 runs phases 1-3 only; ``--parallel`` phases 1, 2 and 13, the latter on a
-freshly loaded large-v3; ``--train`` phases 1, 2 and 14; ``--decode``
+freshly loaded large-v3; ``--spec`` phases 1, 2, 8 and 8b on freshly
+loaded bf16 and int8 large-v3 models (8b's K4 times not looked up: phase
+3 does not run); ``--train`` phases 1, 2 and 14; ``--decode``
 phases 1, 2, the decode profiles of 5 and 6 (captured against uncaptured)
 and phase 11's two threads, on freshly loaded large-v3 models. ``--kernels``: every kernel's checks, determinism and per-shape
 times (K1, K1 f32, K1b, K2, K4, K3, K3kt, K3i8), and prints their entries. Copied
@@ -226,6 +237,7 @@ import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -1340,13 +1352,14 @@ def decode_outputs(handle) -> list:
     return [p if torch.is_tensor(p) else torch.tensor(p) for p in parts] + [torch.tensor(handle["steps"])]
 
 
-def graph_line(tag: str, model, before: dict) -> dict:
-    """The ``[graph]`` line: the decoder's graph cache since ``before``."""
+def graph_line(tag: str, model, before: dict, attr: str = "_step_graphs") -> dict:
+    """The ``[graph]`` line: the decoder's graph cache since ``before``
+    (``attr=SPEC_GRAPHS``: its speculative decodes' cache)."""
     import torch
 
     from whisperx_tpu_torch.decoding.step_graph import graph_cache
 
-    now = graph_cache(model.decoder).stats()
+    now = graph_cache(model.decoder, attr).stats()
     print(
         f"[graph] {tag}: captures {now['captures'] - before['captures']}, replays "
         f"{now['replays'] - before['replays']}; cache entries {now['entries']}, static buffers "
@@ -2048,11 +2061,17 @@ def phase_small_diarization(model, audio) -> None:
     )
 
 
-def spec_run(pipe, audio, label, **options):
+def spec_run(pipe, audio, label, eager: bool = False, **options):
     """One greedy transcription of ``audio`` through ``pipe.transcribe``
     (one temperature, the per-call ``options``): the decode stage's wall
     time, the tracker's counters, each real row's tokens and the K1
-    launches. Speculative with a ``draft_model`` in ``options``."""
+    launches. Speculative with a ``draft_model`` in ``options``: then also
+    each batch's device outputs (tokens, n, sum_logprob, no-speech
+    probability, proposed, accepted, target passes), and ``eager`` runs its
+    iterations uncaptured (``decode_batch_dispatch(..., _eager=True)``, the
+    yardstick); otherwise each iteration replays a captured graph."""
+    import functools
+
     import torch
 
     from whisperx_tpu_torch import asr
@@ -2066,16 +2085,22 @@ def spec_run(pipe, audio, label, **options):
     owner, name = (
         (speculative.SpeculativeDecoder, "decode_batch_finalize") if spec else (asr, "decode_finalize")
     )
-    real, results = getattr(owner, name), []
+    real, results, outputs = getattr(owner, name), [], []
 
     def kept(*a):
         out = real(*a)
         results.extend(out)
+        if spec:
+            outputs.append([t.cpu() for t in a[-1]["device"]])
         return out
 
+    Spec = speculative.SpeculativeDecoder
+    dispatch = Spec.decode_batch_dispatch
     GLOBAL_TRACKER.reset()
     flash_attention.launches = 0
     setattr(owner, name, kept)
+    if eager:
+        Spec.decode_batch_dispatch = functools.partialmethod(dispatch, _eager=True)
     try:
         t0 = time.perf_counter()
         result = pipe.transcribe(audio, language="en", temperatures=(0.0,), **options)
@@ -2083,6 +2108,7 @@ def spec_run(pipe, audio, label, **options):
         wall = time.perf_counter() - t0
     finally:
         setattr(owner, name, real)
+        Spec.decode_batch_dispatch = dispatch
     report, counters = GLOBAL_TRACKER.report(), dict(GLOBAL_TRACKER.counters)
     rows = int(counters["batch_used"])  # the zero rows padding the last batch come last
     tokens = [r.tokens for r in results][:rows]
@@ -2092,7 +2118,8 @@ def spec_run(pipe, audio, label, **options):
         "wall": wall, "decode_s": decode_s, "decodes": report["decode"]["calls"],
         "steps": int(counters.get("decode_steps", 0)), "tokens": tokens, "rows": rows,
         "emitted": emitted, "k1": flash_attention.launches, "result": result,
-        "ms_per_token": decode_s / (emitted / rows) * 1e3,
+        "ms_per_token": decode_s / (emitted / rows) * 1e3, "outputs": outputs,
+        "ms_per_iteration": decode_s / max(int(counters.get("decode_steps", 0)), 1) * 1e3,
         "proposed": int(counters.get("spec_proposed", 0)),
         "accepted": int(counters.get("spec_accepted", 0)),
         "passes": int(counters.get("spec_target_passes", 0)),
@@ -2103,6 +2130,7 @@ def spec_run(pipe, audio, label, **options):
         f"({out['steps']} {'iterations' if spec else 'steps'}); tokens emitted {emitted} "
         f"({emitted / rows:.1f} a row); ms per emitted token (decode wall / tokens a row) "
         f"{out['ms_per_token']:.3f}; "
+        + (f"ms per iteration {out['ms_per_iteration']:.3f} ({'uncaptured' if eager else 'captured'}); " if spec else "")
         + (
             f"target passes {out['passes']}, proposed {out['proposed']}, accepted "
             f"{out['accepted']} (acceptance {acc:.4f}); "
@@ -2113,33 +2141,66 @@ def spec_run(pipe, audio, label, **options):
     return out
 
 
+def same_spec_bits(label: str, runs: list) -> None:
+    """Every run's batches give the first run's bits: tokens, n,
+    sum_logprob, no-speech probability, proposed, accepted, target passes."""
+    import torch
+
+    ref = runs[0]["outputs"]
+    for run in runs[1:]:
+        assert len(run["outputs"]) == len(ref) and all(
+            torch.equal(a, b) for got, want in zip(run["outputs"], ref) for a, b in zip(got, want)
+        ), f"[spec] {label}: a run's outputs differ from the first run's"
+
+
 def phase_speculative(pipe) -> None:
     """Speculative decoding at full large-v3 width (bf16, random weights,
     seed 0) on the main path's 120 s (seed 1), batch 8, one temperature:
-    ``draft_model="self:4"``, ``spec_gamma=4`` through ``transcribe``; the
-    same with a ``zero_tail_model(model, 4)`` target (its ``self:4`` draft
-    agrees exactly: acceptance ≈ 1, the mechanism's upper bound); and a
-    plain greedy decode of the same batch with ``kv_quant=False`` (the
-    cross-KV the speculative path keeps). K1 launches 32 × the decodes (the
-    ``self:N`` draft shares the target's encoder). The share of rows whose
-    bf16 tokens equal greedy's is printed, not asserted: random weights
-    flip bf16 ties."""
+    ``draft_model="self:4"``, ``spec_gamma=4`` through ``transcribe``,
+    each iteration a replay of a captured graph (the target's speculative
+    graph cache), three times in turns: captured, uncaptured (``_eager``,
+    the yardstick), captured; the three must give the same bits (every
+    batch's tokens, n, sum_logprob, proposed, accepted, target passes).
+    Then the same with a ``zero_tail_model(model, 4)`` target (its
+    ``self:4`` draft agrees exactly: acceptance ≈ 1, the mechanism's upper
+    bound), captured; and a plain greedy decode of the same batch with
+    ``kv_quant=False`` (the cross-KV the speculative path keeps). K1
+    launches 32 × the decodes (the ``self:N`` draft shares the target's
+    encoder). ``[graph]`` lines: captures, replays, static bytes; the
+    phase's peak memory. The share of rows whose bf16 tokens equal
+    greedy's is printed, not asserted: random weights flip bf16 ties."""
     import torch
 
     from whisperx_tpu_torch.asr import TranscriptionPipeline
-    from whisperx_tpu_torch.decoding.speculative import zero_tail_model
+    from whisperx_tpu_torch.decoding.speculative import SPEC_GRAPHS, zero_tail_model
+    from whisperx_tpu_torch.decoding.step_graph import graph_cache
 
     audio = synth_speech(MAIN_AUDIO_S, seed=1)
-    n_layer = pipe.model.dims.n_audio_layer
-    spec = spec_run(pipe, audio, "self:4, gamma 4", draft_model="self:4", spec_gamma=4)
+    model = pipe.model
+    n_layer = model.dims.n_audio_layer
+    torch.cuda.reset_peak_memory_stats()
+    before = graph_cache(model.decoder, SPEC_GRAPHS).stats()
+    runs = []
+    for mode in ("captured", "uncaptured", "captured"):
+        runs.append(spec_run(pipe, audio, f"self:4, gamma 4, {mode}", eager=mode == "uncaptured",
+                             draft_model="self:4", spec_gamma=4))
+    same_spec_bits("self:4 captured and uncaptured", runs)
+    graphs = graph_line("spec self:4 (two captured runs)", model, before, SPEC_GRAPHS)
+    assert graphs["replays"] - before["replays"] > 0 and graphs["captures"] - before["captures"] == 1
+    spec, eager = runs[2], runs[1]
     greedy = spec_run(pipe, audio, "plain greedy, kv_quant=False", kv_quant=False)
     zt_pipe = TranscriptionPipeline(
-        model=zero_tail_model(pipe.model, 4), vad_model=pipe.vad_model, batch_size=8
+        model=zero_tail_model(model, 4), vad_model=pipe.vad_model, batch_size=8
     )
-    zero = spec_run(zt_pipe, audio, "zero-tail target, self:4, gamma 4", draft_model="self:4", spec_gamma=4)
+    zero = spec_run(zt_pipe, audio, "zero-tail target, self:4, gamma 4, captured", draft_model="self:4",
+                    spec_gamma=4)
+    zt_graphs = graph_line("spec zero-tail", zt_pipe.model, {"captures": 0, "replays": 0}, SPEC_GRAPHS)
+    assert zt_graphs["replays"] > 0
+    print(f"[spec] phase peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; a speculative "
+          f"entry's static buffers {graphs['static_bytes'] / max(graphs['entries'], 1) / 2**30:.3f} GiB")
     del zt_pipe
     torch.cuda.empty_cache()
-    for run in (spec, zero):
+    for run in (*runs, zero):
         assert run["k1"] == n_layer * run["decodes"] > 0, (run["k1"], run["decodes"])
         assert run["passes"] > 0 and run["proposed"] == 4 * run["passes"], run
         for seg in run["result"]["segments"]:
@@ -2148,12 +2209,19 @@ def phase_speculative(pipe) -> None:
     assert zero["accepted"] >= 0.9 * zero["proposed"], zero  # exact agreement, up to the budget
     same = sum(a == b for a, b in zip(spec["tokens"], greedy["tokens"]))
     print(
+        f"[spec] self:4 captured and uncaptured: the same bits over {len(runs)} runs (tokens, n, "
+        f"sum_logprob, proposed, accepted, target passes); ms per emitted token captured "
+        f"{runs[0]['ms_per_token']:.3f} and {spec['ms_per_token']:.3f}, uncaptured {eager['ms_per_token']:.3f} "
+        f"({eager['ms_per_token'] / spec['ms_per_token']:.3f}x); ms per iteration captured "
+        f"{spec['ms_per_iteration']:.3f}, uncaptured {eager['ms_per_iteration']:.3f}"
+    )
+    print(
         f"[spec] rows whose bf16 tokens equal greedy's (printed, not asserted): {same}/{spec['rows']}; "
         f"ms per emitted token: self:4 {spec['ms_per_token']:.3f}, zero-tail {zero['ms_per_token']:.3f}, "
         f"greedy {greedy['ms_per_token']:.3f} (speculative / greedy: {spec['ms_per_token'] / greedy['ms_per_token']:.3f}x "
         f"and {zero['ms_per_token'] / greedy['ms_per_token']:.3f}x); ms per iteration "
-        f"{spec['decode_s'] / max(spec['steps'], 1) * 1e3:.3f} and {zero['decode_s'] / max(zero['steps'], 1) * 1e3:.3f} "
-        f"against {greedy['decode_s'] / max(greedy['steps'], 1) * 1e3:.3f} per greedy step"
+        f"{spec['ms_per_iteration']:.3f} and {zero['ms_per_iteration']:.3f} "
+        f"against {greedy['decode_s'] / max(greedy['steps'], 1) * 1e3:.3f} per greedy step; {card_line()}"
     )
 
 
@@ -2184,12 +2252,16 @@ def spec_k4_launches(q_target, q_draft, n_dec, iterations, n_init, gamma=4, batc
 def phase_speculative_int8(model, k4_shapes: list) -> None:
     """Phase 6's int8 large-v3 with a ``self:4`` draft (γ 4) on the CLI's
     60 s (seed 2), one temperature, SPEC_INT8_SAMPLE_LEN tokens a row,
-    through ``transcribe``: every quantized
+    through ``transcribe``, each iteration a replay of a captured graph,
+    then once uncaptured (``_eager``): the same bits; every quantized
     linear through K4, as often per shape as ``spec_k4_launches`` derives
     from the code (draft steps at M = 8, a shape the beam CLI never runs;
-    verify passes at M = 40); Σ launches × ms over the shapes phase 3 timed
-    against Σ launches × bound."""
+    verify passes at M = 40) in both runs, a replay adding what its
+    capture recorded; Σ launches × ms over the shapes phase 3 timed against
+    Σ launches × bound."""
     from whisperx_tpu_torch.asr import TranscriptionPipeline
+    from whisperx_tpu_torch.decoding.speculative import SPEC_GRAPHS
+    from whisperx_tpu_torch.decoding.step_graph import graph_cache
     from whisperx_tpu_torch.ops.quant_matmul import quant_matmul
     from whisperx_tpu_torch.quant import QuantizedLinear
     from whisperx_tpu_torch.vad import EnergyVAD
@@ -2199,16 +2271,31 @@ def phase_speculative_int8(model, k4_shapes: list) -> None:
         {int(n.split(".")[2]) for n, m in model.named_modules() if isinstance(m, QuantizedLinear)}
     )
     q_target, q_draft = len(q_blocks), sum(1 for b in q_blocks if b < 4)
-    quant_matmul.launches = 0
-    with k4_by_shape() as shapes:
-        run = spec_run(pipe, synth_speech(CLI_AUDIO_S, seed=2), "int8, self:4, gamma 4",
-                       draft_model="self:4", spec_gamma=4, sample_len=SPEC_INT8_SAMPLE_LEN)
-    by_shape = shapes.counts()
     n_init = 3  # <|startoftranscript|><|en|><|transcribe|>
-    want = spec_k4_launches(q_target, q_draft, run["decodes"], run["steps"], n_init)
-    assert dict(by_shape) == want, (dict(by_shape), want)
-    assert quant_matmul.launches == sum(want.values()) > 0
-    assert run["k1"] == model.dims.n_audio_layer * run["decodes"]
+    before = graph_cache(model.decoder, SPEC_GRAPHS).stats()
+    runs = []
+    for mode in ("captured", "uncaptured"):
+        quant_matmul.launches = 0
+        with k4_by_shape() as shapes:
+            run = spec_run(pipe, synth_speech(CLI_AUDIO_S, seed=2), f"int8, self:4, gamma 4, {mode}",
+                           eager=mode == "uncaptured", draft_model="self:4", spec_gamma=4,
+                           sample_len=SPEC_INT8_SAMPLE_LEN)
+        by_shape = shapes.counts()
+        want = spec_k4_launches(q_target, q_draft, run["decodes"], run["steps"], n_init)
+        assert dict(by_shape) == want, (mode, dict(by_shape), want)
+        assert quant_matmul.launches == sum(want.values()) > 0, mode
+        assert run["k1"] == model.dims.n_audio_layer * run["decodes"]
+        runs.append(run)
+        if mode == "captured":
+            graphs = graph_line("spec int8 self:4", model, before, SPEC_GRAPHS)
+            assert graphs["replays"] - before["replays"] > 0
+    same_spec_bits("int8 self:4 captured and uncaptured", runs)
+    captured, eager = runs
+    print(
+        f"[spec int8] captured and uncaptured: the same bits and K4 launches per shape; ms per emitted "
+        f"token {captured['ms_per_token']:.3f} captured, {eager['ms_per_token']:.3f} uncaptured; ms per "
+        f"iteration {captured['ms_per_iteration']:.3f} and {eager['ms_per_iteration']:.3f}; {card_line()}"
+    )
     times = {(r["m"], r["k"], r["n"]): r for r in k4_shapes}
     device_ms = floor_ms = 0.0
     for shape, n in sorted(want.items()):
@@ -3567,6 +3654,8 @@ def phase_parallel(pipe) -> None:
     from whisperx_tpu_torch.quant import quantize_model
     from whisperx_tpu_torch.utils.metrics import GLOBAL_TRACKER
 
+    from whisperx_tpu_torch.decoding.step_graph import StepGraph
+
     model = pipe.model
     dims = model.dims
     n_layer = dims.n_audio_layer
@@ -3582,31 +3671,52 @@ def phase_parallel(pipe) -> None:
     # (a) data parallelism: two replicas on one card
     audio = main_audio[: int(PARALLEL_AUDIO_S * 16000)]
     opts = dict(language="en", temperatures=(0.0,), sample_len=PARALLEL_SAMPLE_LEN)
-    plain = {}
+    plain, plain_s = {}, {}
     for bs in (8, 4):
         t0 = time.perf_counter()
         plain[bs] = pipe.transcribe(audio, batch_size=bs, **opts)
         torch.cuda.synchronize()
+        plain_s[bs] = time.perf_counter() - t0
         print(f"[parallel] plain pipeline, batch {bs}: {len(plain[bs]['segments'])} segments in "
-              f"{time.perf_counter() - t0:.3f} s")
+              f"{plain_s[bs]:.3f} s")
     mesh = make_mesh(n_data=2, devices=[cuda0, cuda0])
     dp = DataParallelPipeline(pipe, mesh=mesh)
     assert model._dp_replicas == [model, model], "rows of one device share one replica"
+    # each replica's steps replay a captured graph, on an entry of its own:
+    # replays counted per (worker thread, entry)
+    real_step, replays = StepGraph.step, {}
+
+    def step(self, body):
+        if self.graph is not None:
+            key = (threading.get_ident(), id(self))
+            replays[key] = replays.get(key, 0) + 1
+        real_step(self, body)
+
     GLOBAL_TRACKER.reset()
     flash_attention.launches = 0
-    t0 = time.perf_counter()
-    got = dp.transcribe(audio, batch_size=8, **opts)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    StepGraph.step = step
+    try:
+        t0 = time.perf_counter()
+        got = dp.transcribe(audio, batch_size=8, **opts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        StepGraph.step = real_step
     decodes = GLOBAL_TRACKER.report()["decode"]["calls"]
     k1 = flash_attention.launches
     assert k1 == n_layer * 2 * decodes > 0, (k1, decodes)
     assert got["segments"] == plain[4]["segments"] and got["segments"], (got, plain[4])
+    threads = {t for t, _ in replays}
+    entries = {e for _, e in replays}
+    assert len(entries) >= 2 and len(threads) >= 2, replays  # both replicas' entries replayed
     print(
-        f"[parallel] DataParallelPipeline over {mesh}: {PARALLEL_AUDIO_S:.0f} s in {wall:.3f} s, "
-        f"{len(got['segments'])} segments equal to the plain pipeline's at batch 4 (each replica's "
-        f"rows); equal to batch 8's: {got['segments'] == plain[8]['segments']}; {decodes} decodes, "
-        f"K1 launches {k1} (= {n_layer} x 2 replicas x {decodes})"
+        f"[parallel] DataParallelPipeline over {mesh}: {PARALLEL_AUDIO_S:.0f} s in {wall:.3f} s against "
+        f"the plain pipeline's {plain_s[8]:.3f} s at batch 8 and {plain_s[4]:.3f} s at batch 4 "
+        f"({wall / plain_s[8]:.3f}x); {len(got['segments'])} segments equal to the plain pipeline's at "
+        f"batch 4 (each replica's rows); equal to batch 8's: {got['segments'] == plain[8]['segments']}; "
+        f"{decodes} decodes, K1 launches {k1} (= {n_layer} x 2 replicas x {decodes}); replays "
+        f"{sum(replays.values())} on {len(entries)} cache entries from {len(threads)} worker threads "
+        f"(each replica's decode its own entry); {card_line()}"
     )
 
     # (b) tensor parallelism over two shards of one card
@@ -4351,6 +4461,19 @@ def main() -> int:
         )
         timed(phase_parallel, pipe)
         print(f"[done] {REPO}: phase 13 passed in {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if sys.argv[1:] == ["--spec"]:  # phases 8 and 8b alone, on fresh models
+        import whisperx_tpu_torch
+
+        pipe = whisperx_tpu_torch.load_model("large-v3", vad_method="energy", batch_size=8,
+                                             compute_type="bfloat16")
+        timed(phase_speculative, pipe)
+        del pipe
+        torch.cuda.empty_cache()
+        pipe = whisperx_tpu_torch.load_model("large-v3", vad_method="energy", batch_size=8,
+                                             compute_type="int8")
+        timed(phase_speculative_int8, pipe.model, [])
+        print(f"[done] {REPO}: speculative phases passed in {time.perf_counter() - t_start:.1f} s")
         return 0
     if sys.argv[1:] == ["--decode"]:  # the decode phases alone, on fresh models
         import whisperx_tpu_torch

@@ -22,10 +22,10 @@ Differences of form, not of result: the JAX package runs the loop as one
 back once per step, and on one CUDA device each step is one replay of a
 captured CUDA graph (``step_graph.py``) over static buffers
 (``_BeamBuffers``; the banks' ``n_sampled`` is a device scalar), as in the
-port's greedy loop; the CPU, and meshed or tensor-parallel decodes, run the
-same body uncaptured. The self-attention cache is reordered in place: each
-layer's tensor is overwritten with its ``index_select`` (two copies of the
-cache per step). The 2K candidates are chosen with ties broken toward the
+port's greedy loop, each data-parallel replica's too; the CPU, and
+tensor-parallel decodes, run the same body uncaptured. The self-attention
+cache is reordered in place: each layer's tensor is overwritten with its
+``index_select`` (two copies of the cache per step). The 2K candidates are chosen with ties broken toward the
 lower index, the order of ``jax.lax.top_k`` (``torch.topk`` promises no
 order among ties).
 """
@@ -242,7 +242,7 @@ def _beam_decode(
     shape = ("beam", b, k, c, cache_len, audio_features.shape[1], _step_config(cfg))
     make = lambda: _BeamBuffers.allocate(dec, cross_k, cross_v, b, k, c, cache_len, cfg)
     init_bk = initial_tokens.repeat_interleave(k, dim=0)  # same prefix everywhere
-    with step_runner(model, capture, shape, make) as (s, run):
+    with step_runner((model,), capture, shape, make) as (s, run):
         s.start(cross_k, cross_v, init_bk, k, cfg.eot)
         del cross_k, cross_v
         # the prefill: one eager pass at offset 0

@@ -1,8 +1,8 @@
 """Batched autoregressive decoding for Whisper.
 
 Counterpart of ``whisperx_tpu/decoding/decode.py`` (greedy, temperature
-sampling and beam search, ``decoding/beam.py``; speculative decoding comes
-later). One decode is
+sampling and beam search, ``decoding/beam.py``; speculative decoding is
+``decoding/speculative.py``). One decode is
 encoder → cross-KV (int8 when ``kv_quant``) → prefill → a step loop with the
 logit filters in f32, over static shapes: a token buffer [B, sample_len], a
 self-attention cache sized to the decode budget, and finished rows that keep
@@ -15,14 +15,17 @@ captured CUDA graph (``step_graph.py``): the step's body reads and writes
 static buffers in place (``_SampleBuffers``: the token index, offset and
 filter step are device tensors; a sampled step's uniform draw is made
 before the replay, into a buffer). The CPU runs the same body uncaptured,
-as do the decodes that stay eager on the card: meshed and tensor-parallel
-decodes (below).
+as do tensor-parallel decodes on the card (a block split over devices:
+``step_graph.graphable`` is False).
 
 With a mesh active (``parallel.use_mesh``) whose data axis divides the
 batch (after ``best_of`` tiling), ``decode_dispatch`` cuts the rows into one
 contiguous slice per data row and decodes each on its row's model replica,
-on a worker thread of its own (JAX's ``_shard_data``), uncaptured; a
-sampled split reads its rows of the whole batch's draws (``_SharedNoise``),
+on a worker thread of its own (JAX's meshed ``_decode_jit``, ``_shard_data``).
+Each replica's steps replay a captured graph as a single-card decode's do,
+on a cache entry of its own; replicas on one device share one decoder and
+its cache. A sampled split reads its rows of the whole batch's draws
+(``_SharedNoise``), copied into its entry's noise buffer before each replay,
 so it samples the unsplit decode's tokens.
 """
 
@@ -280,7 +283,7 @@ def _decode(
     cache_len = _cache_len(cfg, n_init)
     shape = ("sample", b, cache_len, audio_features.shape[1], _step_config(cfg))
     make = lambda: _SampleBuffers.allocate(dec, cross_k, cross_v, b, cache_len, cfg)
-    with step_runner(model, capture, shape, make) as (s, run):
+    with step_runner((model,), capture, shape, make) as (s, run):
         s.start(cross_k, cross_v, initial_tokens, temperature, cfg.eot)
         del cross_k, cross_v
         # the prefill: one eager pass at offset 0
@@ -499,11 +502,11 @@ def decode_dispatch(
     draws from ``generator`` (a ``torch.Generator`` on the model's
     device), which the caller must pass.
 
-    On one CUDA device each step after the prefill replays a captured graph
-    (``step_graph``); a decode split over a mesh's data rows, or of a
-    tensor-parallel model, and every CPU decode run the same step body
-    uncaptured. ``_eager`` runs it uncaptured on the card too: the
-    yardstick the captured decode is held against, and nothing else."""
+    On a CUDA device each step after the prefill replays a captured graph
+    (``step_graph``), each data-parallel replica's too; a tensor-parallel
+    model's decode and every CPU decode run the same step body uncaptured.
+    ``_eager`` runs it uncaptured on the card too: the yardstick the
+    captured decode is held against, and nothing else."""
     if options.temperature > 0 and generator is None:
         raise ValueError(
             "temperature > 0 samples: pass generator=torch.Generator(device)"
@@ -613,7 +616,7 @@ def decode_dispatch(
                 replicas, (audio_in, initial_arr),
                 lambda j, rep, audio, init: _beam_decode(
                     rep, audio, init, cfg, k, max_candidates,
-                    audio_is_features=shared_features is not None, capture=False,
+                    audio_is_features=shared_features is not None, capture=not _eager,
                 ),
                 mel.device,
             )
@@ -643,7 +646,7 @@ def decode_dispatch(
             try:
                 return _decode(
                     rep, audio, init, temperature, cfg, None,
-                    audio_is_features=shared_features is not None, capture=False,
+                    audio_is_features=shared_features is not None, capture=not _eager,
                     noise=lambda step, shape: shared.rows(
                         j, j * per, (j + 1) * per, step, shape
                     ).to(audio.device),

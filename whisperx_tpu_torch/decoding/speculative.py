@@ -12,7 +12,13 @@ whose rows accept their own number of tokens. The port has no vmap: it runs
 one batched loop whose rows carry their own positions (``decoder_forward``
 with a [B] offset), filter steps and counts, all on the device; the host
 reads back once per iteration whether any row is still active, as the greedy
-loop reads ``finished.all()`` once per step.
+loop reads ``finished.all()`` once per step. On one CUDA device each
+iteration is one replay of a graph captured from its static body
+(``_spec_step`` over ``_SpecBuffers``; ``step_graph.py``), JAX's jitted
+``_spec_batch_jit``: the draft passes, the verify pass and the acceptance
+are one launch from the host. The encoders, cross-KV and prefills stay
+eager; the CPU runs the same body uncaptured. The host loop ``decode`` is
+one, as JAX's ``decode`` is.
 
 The cross-KV of both models is computed in the model's dtype and never
 quantized, as in JAX: ``kv_quant`` does not apply on this path, so the int8
@@ -39,15 +45,26 @@ from whisperx_tpu_torch.decoding.decode import (
     _StaticConfig,
     _apply_filters,
     _build_initial_tokens,
+    _cache_len,
+    _reset_state,
+    _state_buffers,
+    _step_config,
     init_kv_cache_like,
 )
+from whisperx_tpu_torch.decoding.step_graph import GraphCache, graph_cache, load_cache, step_runner
 from whisperx_tpu_torch.models.whisper.model import (
     KVCache,
     decoder_forward,
     encoder_forward,
+    new_self_cache,
     precompute_cross_kv,
 )
 from whisperx_tpu_torch.utils.text import compression_ratio
+
+# the target decoder's attribute that holds its speculative decodes' graph
+# cache (``step_graph.GraphCache``), keyed on the target's and the draft's
+# tensors: a reloaded draft or a ``zero_tail_model`` target misses
+SPEC_GRAPHS = "_spec_graphs"
 
 
 @dataclass
@@ -74,10 +91,87 @@ def shares_cross_kv(target, draft) -> bool:
     )
 
 
-@torch.inference_mode()
-def _spec_batch(target, draft, mels, initial_tokens, cfg, d_cfg, gamma):
-    """The whole speculative generate loop over a batch, every row on its
-    own: prefill both models, then iterations whose body
+@dataclass
+class _SpecBuffers:
+    """What a speculative iteration reads and writes, in place: the static
+    buffers of a captured iteration (``step_graph``). Rows are the batch;
+    every [B] tensor is per row, as each row accepts its own tokens. The
+    draft's cross-KV of a ``self:N`` draft is the target's first layers,
+    the same tensors (``shares_cross_kv``), never a copy."""
+
+    t_cache: KVCache
+    d_cache: KVCache
+    buf: torch.Tensor  # [B, sample_len + γ + 1] int64 (γ+1 slack for a whole window)
+    n: torch.Tensor  # [B] int64: tokens written
+    finished: torch.Tensor  # [B] bool: EOT written
+    active: torch.Tensor  # [B] bool: the rows the next iteration advances
+    sum_lp: torch.Tensor  # [B] f32
+    proposed: torch.Tensor  # [B] int64
+    accepted: torch.Tensor  # [B] int64
+    passes: torch.Tensor  # [B] int64: target passes
+    last_tok: torch.Tensor  # [B] int64: the last accepted token
+    state: F.FilterState  # of [B] tensors: ``step`` counts written tokens
+    # constants of the body, made once with the buffers
+    js: torch.Tensor  # [γ+1] int64: 0..γ
+    back: torch.Tensor  # [2] int64: [1, 2], the last two written slots
+    suppress_mask: torch.Tensor  # [V] bool
+    blank_mask: torch.Tensor  # [V] bool: the blank tokens and EOT
+
+    @classmethod
+    def allocate(cls, target, draft, t_cross, d_cross, b: int, t_len: int, d_len: int,
+                 cfg: _StaticConfig, d_cfg: _StaticConfig, gamma: int, shared: bool):
+        """Buffers for ``b`` rows around this decode's cross-KV; with
+        ``shared`` the draft's cross-KV lists are the target's first layers."""
+        dec = target.decoder
+        device = dec.tok_emb.device
+        n_vocab = dec.tok_emb.shape[0]
+        i64 = dict(dtype=torch.int64, device=device)
+        t_cache = KVCache(*new_self_cache(dec, b, t_len, cfg.n_head), list(t_cross[0]), list(t_cross[1]))
+        if shared:
+            n_draft = len(draft.decoder.blocks)
+            d_cross = (t_cache.cross_k[:n_draft], t_cache.cross_v[:n_draft])
+        d_cache = KVCache(
+            *new_self_cache(draft.decoder, b, d_len, d_cfg.n_head), list(d_cross[0]), list(d_cross[1])
+        )
+        return cls(
+            t_cache=t_cache,
+            d_cache=d_cache,
+            buf=torch.empty((b, cfg.sample_len + gamma + 1), **i64),
+            n=torch.empty((b,), **i64),
+            finished=torch.empty((b,), dtype=torch.bool, device=device),
+            active=torch.empty((b,), dtype=torch.bool, device=device),
+            sum_lp=torch.empty((b,), dtype=torch.float32, device=device),
+            proposed=torch.empty((b,), **i64),
+            accepted=torch.empty((b,), **i64),
+            passes=torch.empty((b,), **i64),
+            last_tok=torch.empty((b,), **i64),
+            state=_state_buffers(b, device),
+            js=torch.arange(gamma + 1, **i64),
+            back=torch.tensor([1, 2], **i64),
+            suppress_mask=F._id_mask(n_vocab, cfg.suppress, device),
+            blank_mask=F._id_mask(n_vocab, cfg.blank_tokens + (cfg.eot,), device),
+        )
+
+    def start(self, t_cross, d_cross, initial_tokens, cfg: _StaticConfig) -> None:
+        """A decode's start: both self caches zeroed, this decode's cross-KV
+        copied in (a shared draft's with the target's), the counts zeroed."""
+        load_cache(self.t_cache, *t_cross)
+        if self.d_cache.cross_k[0] is self.t_cache.cross_k[0]:  # shared: loaded above
+            d_cross = (self.d_cache.cross_k, self.d_cache.cross_v)
+        load_cache(self.d_cache, *d_cross)
+        self.buf.fill_(cfg.eot)
+        for t in (self.n, self.proposed, self.accepted, self.passes, self.sum_lp):
+            t.zero_()
+        self.finished.zero_()
+        self.active.fill_(cfg.sample_len > 0)
+        self.last_tok.copy_(initial_tokens[:, -1])
+        _reset_state(self.state, initial_tokens)
+
+
+def _spec_step(t_dec, d_dec, s: _SpecBuffers, cfg: _StaticConfig, d_cfg: _StaticConfig,
+               gamma: int, n_init: int) -> None:
+    """One speculative iteration over ``s``, in place, for the rows in
+    ``s.active``:
 
       1. drafts γ tokens whose FIRST step re-feeds the last accepted token,
          which repairs the draft cache's mismatch slot of the previous
@@ -88,22 +182,144 @@ def _spec_batch(target, draft, mels, initial_tokens, cfg, d_cfg, gamma):
          full acceptance (γ+1 tokens per verify pass);
       3. accepts the longest agreeing prefix, with a γ+1-step loop that
          carries the filter state (timestamps on), or as vector maths
-         (``without_timestamps``: the filters are position-wise).
+         (``without_timestamps``: the filters are position-wise);
 
-    Every write of a row's outputs, counts and filter state is gated on the
-    row being active, so a finished row is frozen bit for bit. Its
-    self-attention caches are rewritten at its frozen slots, as JAX's body
-    rewrites them, and never read for any output again.
+    then sets ``s.active`` for the next iteration. Every write of a row's
+    outputs, counts and filter state is gated on the row being active, so
+    a finished row is frozen bit for bit. Its self-attention caches are
+    rewritten at its frozen slots, as JAX's body rewrites them, and never
+    read for any output again. Reads no value back to the host (a captured
+    iteration's body): every value that changes between iterations is a
+    buffer of ``s``, written in place."""
+    active, state, buf, n = s.active, s.state, s.buf, s.n
+    zeros = torch.zeros_like(n)
+
+    def t_forward(tokens, offset):
+        return decoder_forward(t_dec, tokens, s.t_cache, offset, cfg.n_head)
+
+    def d_forward(tokens, offset):
+        return decoder_forward(d_dec, tokens, s.d_cache, offset, d_cfg.n_head)
+
+    # slot of the last accepted token (first iteration: the final prompt
+    # token; recomputing its K/V is idempotent)
+    pos = n_init + n - 1
+
+    # --- the draft proposes γ tokens; step 1 re-feeds last_tok -----------
+    d_state, prev, draft_toks = state, s.last_tok, []
+    for g in range(gamma):
+        fl = _apply_filters(d_forward(prev[:, None], pos + g)[:, -1], d_state, d_cfg)
+        prev = torch.argmax(fl, -1)
+        d_state = F.update_filter_state(d_state, prev, cfg.timestamp_begin)
+        draft_toks.append(prev)
+    draft_toks = torch.stack(draft_toks, 1)  # [B, γ]
+    # also write d_γ's K/V: a full acceptance (+ bonus) advances past slot
+    # pos+γ, which nothing else would write; later draft queries would
+    # attend a zeroed slot, silently degrading acceptance
+    d_forward(draft_toks[:, -1:], pos + gamma)
+
+    # --- ONE target pass: repair slot + verify + bonus logits ------------
+    v_logits = t_forward(torch.cat([s.last_tok[:, None], draft_toks], 1), pos)
+
+    # --- accept the longest agreeing prefix (+ bonus token) --------------
+    # position j's target choice comes from v_logits[:, j]; j == γ is the
+    # bonus slot, whose sentinel never matches a draft
+    sum_lp, finished = s.sum_lp, s.finished
+    if cfg.without_timestamps:
+        # the filters are the suppress list and the first token's blank
+        # mask: one masked fill over every position
+        fl = v_logits.float().masked_fill(s.suppress_mask, F.NEG_INF)
+        if cfg.blank_tokens:
+            first = (state.step[:, None] + s.js) == 0  # [B, γ+1]
+            fl = fl.masked_fill(first[:, :, None] & s.blank_mask, F.NEG_INF)
+        choices = torch.argmax(fl, -1)  # [B, γ+1]
+        lps = torch.log_softmax(fl, -1).gather(2, choices[:, :, None])[:, :, 0]
+        match = torch.cat(
+            [choices[:, :gamma] == draft_toks, torch.zeros_like(choices[:, :1], dtype=torch.bool)], 1
+        )
+        is_eot = choices == cfg.eot
+        # position j is written iff every earlier one matched and was not
+        # EOT, and its buffer slot exists
+        ok = (match & ~is_eot).long()
+        prior_ok = torch.cat([torch.ones_like(ok[:, :1]), ok[:, :-1].cumprod(1)], 1).bool()
+        keep = prior_ok & (n[:, None] + s.js < cfg.sample_len) & active[:, None]
+        w = keep.sum(-1)
+        slots = n[:, None] + s.js
+        buf.scatter_(1, slots, torch.where(keep, choices, buf.gather(1, slots)))
+        sum_lp = sum_lp + torch.where(keep, lps, 0.0).sum(-1)
+        n_match = (keep[:, :gamma] & match[:, :gamma]).sum(-1)
+        finished = finished | (keep & is_eot).any(-1)
+        # the filter state after the written run (no timestamp field
+        # changes in this mode): the last two tokens written
+        last_two = choices.gather(1, (w[:, None] - s.back).clamp(min=0))
+        last = torch.where(w >= 1, last_two[:, 0], state.last_token)
+        penult = torch.where(
+            w >= 2, last_two[:, 1], torch.where(w >= 1, state.last_token, state.penult_token)
+        )
+        state = state._replace(last_token=last, penult_token=penult, step=state.step + w)
+    else:
+        draft_ext = torch.cat([draft_toks, torch.full_like(draft_toks[:, :1], -1)], 1)
+        writing, w, n_match = active, zeros, zeros
+        for j in range(gamma + 1):
+            fl = _apply_filters(v_logits[:, j], state, cfg)
+            choice = torch.argmax(fl, -1)
+            lp = torch.log_softmax(fl, -1).gather(1, choice[:, None])[:, 0]
+            write = writing & (n + j < cfg.sample_len)
+            slot = (n + j)[:, None]
+            buf.scatter_(1, slot, torch.where(write[:, None], choice[:, None], buf.gather(1, slot)))
+            sum_lp = sum_lp + torch.where(write, lp, 0.0)
+            new_state = F.update_filter_state(state, choice, cfg.timestamp_begin)
+            state = F.FilterState(*(torch.where(write, new, old) for new, old in zip(new_state, state)))
+            match = choice == draft_ext[:, j]
+            is_eot = choice == cfg.eot
+            w = w + write.long()
+            if j < gamma:
+                n_match = n_match + (write & match).long()
+            finished = finished | (write & is_eot)
+            writing = writing & match & ~is_eot
+
+    # --- the loop's carry, written back into its buffers -----------------
+    new_n = n + w
+    last_written = buf.gather(1, (new_n - 1).clamp(min=0)[:, None])[:, 0]
+    s.last_tok.copy_(torch.where(new_n >= 1, last_written, s.last_tok))
+    n.copy_(new_n)
+    s.sum_lp.copy_(sum_lp)
+    s.finished.copy_(finished)
+    for dst, src in zip(s.state, state):
+        if dst is not src:
+            dst.copy_(src)
+    s.proposed.add_(torch.where(active, gamma, 0))
+    s.accepted.add_(n_match)
+    s.passes.add_(active.long())
+    s.active.copy_(~s.finished & (n < cfg.sample_len))
+
+
+def _cache_lens(cfg: _StaticConfig, d_cfg: _StaticConfig, n_init: int, gamma: int):
+    """Both self caches' lengths: verify passes write up to γ+1 slots past
+    the sampled count, so the budget is widened by as much."""
+    return tuple(
+        _cache_len(dataclasses.replace(c, sample_len=c.sample_len + gamma + 1), n_init)
+        for c in (cfg, d_cfg)
+    )
+
+
+@torch.inference_mode()
+def _spec_batch(target, draft, mels, initial_tokens, cfg, d_cfg, gamma, capture: bool = True):
+    """The whole speculative generate loop over a batch, every row on its
+    own: the encoders, cross-KV and the prefill of both models, eager; then
+    iterations of ``_spec_step`` over static buffers, with one host read
+    each (whether any row is still active). ``capture``: each iteration is
+    a replay of a captured graph (``step_graph``) where both models allow
+    it (CUDA, no tensor-parallel block); False runs the same body
+    uncaptured (the CPU, the yardstick).
 
     Returns (tokens [B, sample_len + γ + 1], n [B], sum_logprob [B],
     no_speech_prob [B], proposed [B], accepted [B], target passes [B],
     audio features, iterations)."""
     b, n_init = initial_tokens.shape
-    device = mels.device
-    pad = gamma + 1
     t_feats = encoder_forward(target.encoder, mels, cfg.n_head_audio)
     t_cross = precompute_cross_kv(target.decoder, t_feats, cfg.n_head)
-    if shares_cross_kv(target, draft):
+    shared = shares_cross_kv(target, draft)
+    if shared:
         # the same encoder and the same first blocks: the same K/V values
         n_draft = len(draft.decoder.blocks)
         d_cross = (t_cross[0][:n_draft], t_cross[1][:n_draft])
@@ -114,137 +330,34 @@ def _spec_batch(target, draft, mels, initial_tokens, cfg, d_cfg, gamma):
             else encoder_forward(draft.encoder, mels.to(draft.dtype), d_cfg.n_head_audio)
         )
         d_cross = precompute_cross_kv(draft.decoder, d_feats, d_cfg.n_head)
-    # verify passes write up to γ+1 slots past the sampled count: widen the
-    # self-cache budget accordingly
-    t_self = init_kv_cache_like(
-        target, b, dataclasses.replace(cfg, sample_len=cfg.sample_len + pad), n_init
+    t_len, d_len = _cache_lens(cfg, d_cfg, n_init, gamma)
+    t_dec, d_dec = target.decoder, draft.decoder
+    shape = (
+        "spec", b, n_init, gamma, t_len, d_len, t_feats.shape[1], cfg.without_timestamps,
+        shared, _step_config(cfg), _step_config(d_cfg),
     )
-    d_self = init_kv_cache_like(
-        draft, b, dataclasses.replace(d_cfg, sample_len=d_cfg.sample_len + pad), n_init
+    make = lambda: _SpecBuffers.allocate(
+        target, draft, t_cross, d_cross, b, t_len, d_len, cfg, d_cfg, gamma, shared
     )
-    t_cache = KVCache(t_self[0], t_self[1], *t_cross)
-    d_cache = KVCache(d_self[0], d_self[1], *d_cross)
+    cache = graph_cache(t_dec, SPEC_GRAPHS)
+    with step_runner((target, draft), capture, shape, make, cache) as (s, run):
+        s.start(t_cross, d_cross, initial_tokens, cfg)
+        del t_cross, d_cross
+        # the prefills: one eager pass each at offset 0
+        t_logits = decoder_forward(t_dec, initial_tokens, s.t_cache, 0, cfg.n_head)
+        if n_init > 1:
+            decoder_forward(d_dec, initial_tokens[:, :-1], s.d_cache, 0, d_cfg.n_head)
+        no_speech_prob = torch.softmax(t_logits[:, cfg.sot_index].float(), -1)[:, cfg.no_speech_token]
+        del t_logits
 
-    def t_forward(tokens, offset):
-        return decoder_forward(target.decoder, tokens, t_cache, offset, cfg.n_head)
-
-    def d_forward(tokens, offset):
-        return decoder_forward(draft.decoder, tokens, d_cache, offset, d_cfg.n_head)
-
-    t_logits = t_forward(initial_tokens, 0)
-    if n_init > 1:
-        d_forward(initial_tokens[:, :-1], 0)
-    no_speech_prob = torch.softmax(t_logits[:, cfg.sot_index].float(), -1)[
-        :, cfg.no_speech_token
-    ]
-
-    n_vocab = target.decoder.tok_emb.shape[0]
-    suppress_mask = F._id_mask(n_vocab, cfg.suppress, device)
-    blank_mask = F._id_mask(n_vocab, cfg.blank_tokens + (cfg.eot,), device)
-
-    # γ+1 slack so that the vectorised acceptance can write a whole window
-    buf = torch.full((b, cfg.sample_len + pad), cfg.eot, dtype=torch.int64, device=device)
-    zeros = torch.zeros((b,), dtype=torch.int64, device=device)
-    n, proposed, accepted, passes = zeros, zeros, zeros, zeros
-    finished = torch.zeros((b,), dtype=torch.bool, device=device)
-    sum_lp = torch.zeros((b,), dtype=torch.float32, device=device)
-    state = F.init_filter_state(initial_tokens)._replace(step=zeros)
-    last_tok = initial_tokens[:, -1]
-    js = torch.arange(pad, device=device)
-    iterations = 0
-
-    while True:
-        active = ~finished & (n < cfg.sample_len)
-        if not bool(active.any()):  # the one host read of the iteration
-            break
-        iterations += 1
-        # slot of the last accepted token (first iteration: the final prompt
-        # token; recomputing its K/V is idempotent)
-        pos = n_init + n - 1
-
-        # --- the draft proposes γ tokens; step 1 re-feeds last_tok -------
-        d_state, prev, draft_toks = state, last_tok, []
-        for g in range(gamma):
-            fl = _apply_filters(d_forward(prev[:, None], pos + g)[:, -1], d_state, d_cfg)
-            prev = torch.argmax(fl, -1)
-            d_state = F.update_filter_state(d_state, prev, cfg.timestamp_begin)
-            draft_toks.append(prev)
-        draft_toks = torch.stack(draft_toks, 1)  # [B, γ]
-        # also write d_γ's K/V: a full acceptance (+ bonus) advances past
-        # slot pos+γ, which nothing else would write; later draft queries
-        # would attend a zeroed slot, silently degrading acceptance
-        d_forward(draft_toks[:, -1:], pos + gamma)
-
-        # --- ONE target pass: repair slot + verify + bonus logits --------
-        v_logits = t_forward(torch.cat([last_tok[:, None], draft_toks], 1), pos)
-
-        # --- accept the longest agreeing prefix (+ bonus token) ----------
-        # position j's target choice comes from v_logits[:, j]; j == γ is
-        # the bonus slot, whose sentinel never matches a draft
-        if cfg.without_timestamps:
-            # the filters are the suppress list and the first token's blank
-            # mask: one masked fill over every position
-            fl = v_logits.float().masked_fill(suppress_mask, F.NEG_INF)
-            if cfg.blank_tokens:
-                first = (state.step[:, None] + js) == 0  # [B, γ+1]
-                fl = fl.masked_fill(first[:, :, None] & blank_mask, F.NEG_INF)
-            choices = torch.argmax(fl, -1)  # [B, γ+1]
-            lps = torch.log_softmax(fl, -1).gather(2, choices[:, :, None])[:, :, 0]
-            match = torch.cat(
-                [choices[:, :gamma] == draft_toks, torch.zeros_like(choices[:, :1], dtype=torch.bool)], 1
-            )
-            is_eot = choices == cfg.eot
-            # position j is written iff every earlier one matched and was not
-            # EOT, and its buffer slot exists
-            ok = (match & ~is_eot).long()
-            prior_ok = torch.cat([torch.ones_like(ok[:, :1]), ok[:, :-1].cumprod(1)], 1).bool()
-            keep = prior_ok & (n[:, None] + js < cfg.sample_len) & active[:, None]
-            w = keep.sum(-1)
-            slots = n[:, None] + js
-            buf.scatter_(1, slots, torch.where(keep, choices, buf.gather(1, slots)))
-            sum_lp = sum_lp + torch.where(keep, lps, 0.0).sum(-1)
-            n_match = (keep[:, :gamma] & match[:, :gamma]).sum(-1)
-            finished = finished | (keep & is_eot).any(-1)
-            # the filter state after the written run (no timestamp field
-            # changes in this mode): the last two tokens written
-            last_two = choices.gather(1, (w[:, None] - torch.tensor([1, 2], device=device)).clamp(min=0))
-            last = torch.where(w >= 1, last_two[:, 0], state.last_token)
-            penult = torch.where(
-                w >= 2, last_two[:, 1], torch.where(w >= 1, state.last_token, state.penult_token)
-            )
-            state = state._replace(last_token=last, penult_token=penult, step=state.step + w)
-        else:
-            draft_ext = torch.cat([draft_toks, torch.full_like(draft_toks[:, :1], -1)], 1)
-            writing, w, n_match = active, zeros, zeros
-            for j in range(pad):
-                fl = _apply_filters(v_logits[:, j], state, cfg)
-                choice = torch.argmax(fl, -1)
-                lp = torch.log_softmax(fl, -1).gather(1, choice[:, None])[:, 0]
-                write = writing & (n + j < cfg.sample_len)
-                slot = (n + j)[:, None]
-                buf.scatter_(1, slot, torch.where(write[:, None], choice[:, None], buf.gather(1, slot)))
-                sum_lp = sum_lp + torch.where(write, lp, 0.0)
-                new_state = F.update_filter_state(state, choice, cfg.timestamp_begin)
-                state = F.FilterState(
-                    *(torch.where(write, new, old) for new, old in zip(new_state, state))
-                )
-                match = choice == draft_ext[:, j]
-                is_eot = choice == cfg.eot
-                w = w + write.long()
-                if j < gamma:
-                    n_match = n_match + (write & match).long()
-                finished = finished | (write & is_eot)
-                writing = writing & match & ~is_eot
-
-        new_n = n + w
-        last_written = buf.gather(1, (new_n - 1).clamp(min=0)[:, None])[:, 0]
-        last_tok = torch.where(new_n >= 1, last_written, last_tok)
-        n = new_n
-        proposed = proposed + torch.where(active, gamma, 0)
-        accepted = accepted + n_match
-        passes = passes + active.long()
-
-    return buf, n, sum_lp, no_speech_prob, proposed, accepted, passes, t_feats, iterations
+        iterations = 0
+        # one host read per iteration: the loop stops once no row is active
+        while bool(s.active.any()):
+            run(lambda: _spec_step(t_dec, d_dec, s, cfg, d_cfg, gamma, n_init))
+            iterations += 1
+        out = tuple(t.clone() for t in (s.buf, s.n, s.sum_lp))
+        counts = tuple(t.clone() for t in (s.proposed, s.accepted, s.passes))
+    return (*out, no_speech_prob, *counts, t_feats, iterations)
 
 
 # ---------------------------------------------------------------------------
@@ -257,6 +370,8 @@ def _shallow(module: nn.Module) -> nn.Module:
     ``module``; assigning a submodule to it leaves ``module`` unchanged."""
     out = copy.copy(module)
     out._modules = dict(module._modules)
+    for name in [k for k, v in out.__dict__.items() if isinstance(v, GraphCache)]:
+        del out.__dict__[name]  # a new decoder starts with no graphs
     return out
 
 
@@ -359,10 +474,11 @@ class SpeculativeDecoder:
         options: DecodingOptions = DecodingOptions(),
         tokenizer=None,
     ) -> DecodingResult:
-        """The batched loop at B=1 (JAX's name, kept for API parity: there
-        it is one jitted program). No host round trip per token beyond the
-        loop's one read per iteration; output token-identical to plain
-        greedy decoding of the target."""
+        """The batched loop at B=1 (JAX's name: there it is one jitted
+        program; here, on one CUDA device, each iteration is one replay of
+        a captured graph). No host round trip per token beyond the loop's
+        one read per iteration; output token-identical to plain greedy
+        decoding of the target."""
         tokenizer, initial, cfg, d_cfg = self._configs(options, tokenizer)
         init = torch.tensor([initial], dtype=torch.int64, device=mel.device)
         buf, n, sum_lp, nsp, prop, acc, tp, t_feats, _ = _spec_batch(
@@ -393,16 +509,24 @@ class SpeculativeDecoder:
         options: DecodingOptions = DecodingOptions(),
         tokenizer=None,
         n_real: Optional[int] = None,
+        _eager: bool = False,
     ) -> dict:
         """Run the batched speculative decode and return its device tensors,
         not yet read back: the speculative twin of ``decode.decode_dispatch``
         for the pipeline's dispatch/finalize handles. ``n_real``: the rows
-        that are real audio (the pipeline zero-pads ragged groups)."""
+        that are real audio (the pipeline zero-pads ragged groups).
+
+        On one CUDA device each iteration replays a captured graph
+        (``step_graph``, an entry of the target decoder's speculative graph
+        cache); the CPU and tensor-parallel models run the same body
+        uncaptured. ``_eager`` runs it uncaptured on the card too: the
+        yardstick the captured decode is held against, and nothing else."""
         tokenizer, initial, cfg, d_cfg = self._configs(options, tokenizer)
         b = mels.shape[0]
         init = torch.tensor([initial] * b, dtype=torch.int64, device=mels.device)
         buf, n, sum_lp, nsp, prop, acc, tp, _, iterations = _spec_batch(
-            self.target, self.draft, mels.to(self.target.dtype), init, cfg, d_cfg, self.gamma
+            self.target, self.draft, mels.to(self.target.dtype), init, cfg, d_cfg, self.gamma,
+            capture=not _eager,
         )
         return {
             "device": (buf, n, sum_lp, nsp, prop, acc, tp),

@@ -2,18 +2,24 @@
 
 Counterpart of the JAX package's ``lax.while_loop`` decodes
 (``whisperx_tpu/decoding/decode.py::_decode_jit``, ``beam.py::
-_beam_decode_jit``), which run every step on the device with no host read.
-Here the host keeps the loop and its one read per step (``finished.all()``,
-or the beam banks' counts), and each step is one replay of a graph captured
-from the step's static body: about 1,600 launches from Python become one.
+_beam_decode_jit``, ``speculative.py::_spec_batch_jit``), which run every
+step on the device with no host read. Here the host keeps the loop and its
+one read per step (``finished.all()``, the beam banks' counts, or whether
+a speculative row is still active), and each step is one replay of a graph
+captured from the step's static body: about 1,600 launches from Python
+become one (a speculative iteration's γ draft passes, verify pass and γ+1
+acceptance steps too).
 
 A step body reads and writes only static buffers, in place: the self-KV
 cache, the cross-KV, the filter state, the token buffer and the loop's
-counters (``decode.py::_SampleBuffers``, ``beam.py::_BeamBuffers``). No
-Python value inside it depends on the step number: the offset, the filter
-state's ``step`` and the token index are device tensors. The CPU, and the
-decodes that stay eager on the card (meshed and tensor-parallel decodes),
-run the same body uncaptured, on buffers of their own.
+counters (``decode.py::_SampleBuffers``, ``beam.py::_BeamBuffers``,
+``speculative.py::_SpecBuffers``). No Python value inside it depends on the
+step number: the offset, the filter state's ``step`` and the token index
+are device tensors. The CPU, and the decodes that stay eager on the card
+(tensor-parallel ones), run the same body uncaptured, on buffers of their
+own. A data-parallel split captures as a single-card decode does: each
+replica's decode checks out an entry of its own, and replicas on one
+device share its decoder and cache.
 
 On the card each decoder keeps a ``GraphCache``: up to ``MAX_ENTRIES``
 idle ``StepGraph`` entries, the least recently used evicted first, each
@@ -26,7 +32,10 @@ stream); its second is captured there (``capture_error_mode=
 is a replay. A graph reads the decoder's weights by address, so the key
 holds the address, dtype and shape of every decoder tensor: a quantized,
 placed, moved or reloaded decoder misses, and the entries of its old
-weights are dropped. The cache lives on the decoder and goes with it.
+weights are dropped. The cache lives on the decoder and goes with it. A
+step that reads more than one decoder (a speculative iteration: the
+target's and the draft's) is keyed on the tensors of all of them, in the
+cache its caller names.
 
 Kernel launches are counted as on the eager path: during a capture the
 wrappers' counts go to the entry's record (``ops.recording_launches``),
@@ -69,7 +78,9 @@ def _leaves(x) -> list:
 
 
 def tensor_bytes(x) -> int:
-    return sum(t.numel() * t.element_size() for t in _leaves(x))
+    """Bytes of the distinct tensors of ``x``: a tensor held twice (a
+    ``self:N`` draft's cross-KV, the target's first layers) counts once."""
+    return sum(t.numel() * t.element_size() for t in {id(t): t for t in _leaves(x)}.values())
 
 
 class StepGraph:
@@ -186,22 +197,25 @@ class GraphCache:
             }
 
 
-def graph_cache(dec) -> GraphCache:
-    """The ``GraphCache`` of a decoder module, made at first use."""
-    cache = getattr(dec, "_step_graphs", None)
+def graph_cache(dec, attr: str = "_step_graphs") -> GraphCache:
+    """The ``GraphCache`` held in the decoder module's attribute ``attr``,
+    made at first use: by default its plain and beam decodes'."""
+    cache = getattr(dec, attr, None)
     if cache is None:
         with _CACHE_LOCK:
-            cache = getattr(dec, "_step_graphs", None)
+            cache = getattr(dec, attr, None)
             if cache is None:
-                cache = dec._step_graphs = GraphCache()
+                cache = GraphCache()
+                setattr(dec, attr, cache)
     return cache
 
 
-def weights_fingerprint(dec) -> tuple:
-    """Name, address, dtype and shape of every tensor of the decoder: what
-    a captured step reads by address."""
+def weights_fingerprint(*decs) -> tuple:
+    """Name, address, dtype and shape of every tensor of the decoders, in
+    order: what a captured step reads by address."""
     return tuple(
         (name, t.data_ptr(), t.dtype, tuple(t.shape))
+        for dec in decs
         for name, t in itertools.chain(dec.named_parameters(), dec.named_buffers())
     )
 
@@ -223,23 +237,28 @@ def graphable(model) -> bool:
 
 
 @contextlib.contextmanager
-def step_runner(model, capture: bool, shape: tuple, make: Callable[[], object]):
+def step_runner(
+    models: tuple, capture: bool, shape: tuple, make: Callable[[], object],
+    cache: Optional[GraphCache] = None,
+):
     """Yields ``(buffers, run)``: ``run(body)`` performs one decode step on
-    ``buffers``. With ``capture`` on a ``graphable`` model: a checked-out
-    cache entry's buffers and its replay; otherwise ``make()``'s buffers and
-    ``body`` called as it is (the CPU, meshed decodes, the yardstick).
-    The entry goes back to the cache only after a decode that raised
-    nothing."""
-    if not (capture and graphable(model)):
+    ``buffers``. ``models``: the models whose decoders the step reads, the
+    first the one it decodes. With ``capture`` and every model
+    ``graphable``: a checked-out entry's buffers and its replay, from
+    ``cache`` (by default the first decoder's own), keyed on every
+    decoder's tensors; otherwise ``make()``'s buffers and ``body`` called as
+    it is (the CPU, tensor-parallel decodes, the yardstick). The entry goes
+    back to the cache only after a decode that raised nothing."""
+    if not (capture and all(graphable(m) for m in models)):
         def run(body):
             with reference_matmul():
                 body()
 
         yield make(), run
         return
-    dec = model.decoder
-    cache = graph_cache(dec)
-    weights = weights_fingerprint(dec)
+    dec = models[0].decoder
+    cache = graph_cache(dec) if cache is None else cache
+    weights = weights_fingerprint(*(m.decoder for m in models))
     entry = cache.checkout(weights, graph_key(dec, shape), make, dec.tok_emb.device)
     yield entry.buffers, entry.step
     cache.checkin(weights, entry)
