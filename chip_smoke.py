@@ -39,6 +39,13 @@ Phases, each of which passes or raises (the script then exits non-zero):
      (``WHISPERX_TPU_CROSS_DECODE=1``): K3 must launch once per decoder
      layer per sampled step, and one step's logits must agree with the
      einsum route's;
+  5d. eviction gate (after 5's greedy profile, on its model): a bf16
+     greedy and a beam-5 decode of the profile's batch captured; the
+     cache of ``filters._id_mask`` cleared where it has one, the garbage
+     collected, and [V] bool tensors of True allocated on the current and
+     the capture stream until the small pool's free bytes are spent; both
+     decodes again, every step a replay, must give the uncaptured decode's
+     bits: a replay reads nothing its entry does not own;
   5b. ``transcribe_many`` of three requests through the main path's
      pipeline with the opt-in: one result per request, segments inside
      their own audio, K3 launched n_text_layer × the sampled steps, K1
@@ -69,6 +76,19 @@ Phases, each of which passes or raises (the script then exits non-zero):
      per shape as the code implies; K4's device time per CLI run (Σ
      launches × ms per shape) against its floor (Σ launches × bound); then
      the decode profile of phase 5 for that int8 model with 5 beams;
+     the six formats: ``-f all``'s five, and ``aud`` from the CLI's JSON;
+  6b. CLI int4 (after 8b, the int8 model freed): phase 6's command with
+     ``--compute_type int4``, which has no kernel in either package
+     (dequantize, then one product): K4 launched 0 times, K1 32 per encoder
+     pass; every int4 linear's ``dequantize`` on the card bit-identical to
+     the CPU's; phase 5's profile with 5 beams, captured against
+     uncaptured (bits and launches equal); ms per step, wall and peak
+     memory beside phase 6's int8 figures;
+  6c. float32 (after 6b): ``load_model("large-v3",
+     compute_type="float32", vad_method="energy", batch_size=8)
+     .transcribe`` of 60 s of the main path's speech: every K1 launch on
+     its f32 route, 32 per encoder pass; phase 5's greedy profile in f32,
+     captured against uncaptured; wall, ms per step, peak memory;
   8. speculative decoding (after 5b, on the main path's model and 120 s):
      ``transcribe(..., draft_model="self:4", spec_gamma=4)`` at one
      temperature, each iteration a replay of a captured CUDA graph, three
@@ -218,8 +238,10 @@ runs phases 1-3 only; ``--parallel`` phases 1, 2 and 13, the latter on a
 freshly loaded large-v3; ``--spec`` phases 1, 2, 8 and 8b on freshly
 loaded bf16 and int8 large-v3 models (8b's K4 times not looked up: phase
 3 does not run); ``--train`` phases 1, 2 and 14; ``--decode``
-phases 1, 2, the decode profiles of 5 and 6 (captured against uncaptured)
-and phase 11's two threads, on freshly loaded large-v3 models. ``--kernels``: every kernel's checks, determinism and per-shape
+phases 1, 2, the decode profiles of 5 and 6 (captured against uncaptured),
+5d's eviction gate and phase 11's two threads, on freshly loaded large-v3
+models; ``--precisions`` phases 1, 2, 6 (without phase 3's K4 times),
+its int8 profile, 6b and 6c. ``--kernels``: every kernel's checks, determinism and per-shape
 times (K1, K1 f32, K1b, K2, K4, K3, K3kt, K3i8), and prints their entries. Copied
 into a checkout of another commit, it times that commit's kernels the same
 way: run both in one call to compare two versions on one card.
@@ -264,6 +286,7 @@ PROFILE_BATCH, PROFILE_STEPS, PROFILE_RUNS = 8, 48, 3
 # steps (~23,800 events a step) and took most of each profile phase at 48
 PROFILE_TRACE_STEPS = 24
 CLI_AUDIO_S = 60.0
+F32_AUDIO_S = 60.0  # --compute_type float32 at large-v3: the main path's speech, cut to 60 s
 MANY_AUDIO_S = (20.0, 33.0, 47.0)  # transcribe_many's three requests
 SEQ_AUDIO_S = 40.0  # the seek loop: two windows
 # the ladders of the new phases: two temperatures keep the fallback path
@@ -1381,7 +1404,8 @@ def phase_decode_profile(model, tag: str = "profile", beam_size=None, k3=None) -
     ``k3``: under the cross-decode opt-in, the K3 kernel entry; every run
     must launch it once per decoder layer per sampled step, and its device
     time is printed. The kernels named in each profile (K3, K4) must be
-    found in the captured decode's trace, inside its replays."""
+    found in the captured decode's trace, inside its replays. Returns the
+    median ms per step of each mode and the launches of a 48-step decode."""
     import dataclasses
 
     import numpy as np
@@ -1432,8 +1456,10 @@ def phase_decode_profile(model, tag: str = "profile", beam_size=None, k3=None) -
             t0 = time.perf_counter()
             steps, launches = run(mode)
             per_step_ms[mode].append((time.perf_counter() - t0) / steps * 1e3)
+    medians = {}
     for mode, ms in per_step_ms.items():
         q1, med, q3 = np.percentile(ms, [25, 50, 75])
+        medians[mode] = med
         print(
             f"[{tag}] {mode}: batch {PROFILE_BATCH}, beam {beam_size or 1}, {steps} steps, {PROFILE_RUNS} "
             f"runs: ms per step (wall, encoder and prefill included) {' '.join(f'{x:.3f}' for x in ms)}; "
@@ -1444,7 +1470,8 @@ def phase_decode_profile(model, tag: str = "profile", beam_size=None, k3=None) -
         f"{2 * PROFILE_RUNS + 2} runs; launches per decode equal: {launches}"
     )
     traced_opts = dataclasses.replace(opts, sample_len=PROFILE_TRACE_STEPS)
-    int8 = any(isinstance(m, QuantizedLinear) for m in model.decoder.modules())
+    # K4 serves int8 weights only: int4 dequantizes, then one product
+    int8 = any(isinstance(m, QuantizedLinear) and m.bits == 8 for m in model.decoder.modules())
     for mode in modes:
         run(mode, traced_opts)  # the traced shape's capture, outside the trace
     k4_traced = {}
@@ -1487,6 +1514,84 @@ def phase_decode_profile(model, tag: str = "profile", beam_size=None, k3=None) -
     # the replays' K4 kernels are in the captured trace: as many as eagerly
     assert len(set(k4_traced.values())) <= 1, (f"[{tag}] K4 calls in the traces", k4_traced)
     graph_line(tag, model, cache_before)
+    return {**medians, "launches": launches}
+
+
+# the eviction gate's vocab-sized fillers, at least this many on each stream
+GATE_FILLERS = 300
+
+
+def phase_eviction_gate(model) -> None:
+    """A captured step must own every tensor it reads that its capture did
+    not allocate: a CUDA graph reads by address and keeps nothing alive.
+    A bf16 greedy decode and a beam-5 decode of the profile's batch are
+    captured (or replay the profile's entry); then the masks' shared cache
+    is cleared (``filters._id_mask.cache_clear``, where ``_id_mask`` has
+    one), the garbage collected, and [V] bool tensors filled
+    with True are allocated on the current stream and on the decoder's
+    capture stream, as many as the small pool's free bytes could hold
+    (at least GATE_FILLERS): a freed tensor's bytes go to a filler. Both
+    decodes then run again on their entries, every step a replay, and
+    must give the uncaptured decode's bits."""
+    import gc
+    import math
+
+    import numpy as np
+    import torch
+
+    from whisperx_tpu_torch.asr import warmup_audio
+    from whisperx_tpu_torch.audio import log_mel_batch
+    from whisperx_tpu_torch.decoding import DecodingOptions
+    from whisperx_tpu_torch.decoding import filters
+    from whisperx_tpu_torch.decoding.decode import decode_dispatch
+    from whisperx_tpu_torch.decoding.step_graph import graph_cache
+
+    mels = log_mel_batch(np.stack([warmup_audio(30.0)] * PROFILE_BATCH), model.dims.n_mels, device="cuda")
+    cases = {
+        "greedy": DecodingOptions(language="en", sample_len=PROFILE_STEPS, kv_quant=True),
+        "beam 5": DecodingOptions(language="en", sample_len=PROFILE_STEPS, kv_quant=True, beam_size=5),
+    }
+    cache = graph_cache(model.decoder)
+
+    def decode(opts, eager=False):
+        out = decode_outputs(decode_dispatch(model, mels, opts, _eager=eager))
+        torch.cuda.synchronize()
+        return out
+
+    want = {label: decode(opts, eager=True) for label, opts in cases.items()}
+    for opts in cases.values():
+        decode(opts)  # a new entry's warm-up and capture, or a replay of the profile's
+    clear = getattr(filters._id_mask, "cache_clear", None)
+    if clear is not None:
+        clear()
+    gc.collect()
+    stats = torch.cuda.memory_stats()
+    free_small = stats["reserved_bytes.small_pool.current"] - stats["allocated_bytes.small_pool.current"]
+    vocab = model.dims.n_vocab
+    block = -(-vocab // 512) * 512  # the allocator rounds a small block up to 512 bytes
+    per_stream = max(GATE_FILLERS, math.ceil(free_small / block) + 1)
+    fillers = []
+    for stream in (torch.cuda.current_stream(), cache._stream):
+        with torch.cuda.stream(stream):
+            fillers += [torch.ones(vocab, dtype=torch.bool, device="cuda") for _ in range(per_stream)]
+    torch.cuda.synchronize()
+    before = cache.stats()
+    verdicts, steps = {}, 0
+    for label, opts in cases.items():
+        got = decode(opts)
+        steps += int(got[-1])
+        verdicts[label] = all(torch.equal(a, b) for a, b in zip(got, want[label]))
+        verdict = "the uncaptured decode's bits" if verdicts[label] else "BITS DIFFER"
+        print(
+            f"[gate] {label}: {int(got[-1])} steps replayed after the mask cache was cleared and "
+            f"{len(fillers)} [{vocab}] fillers of True were allocated ({per_stream} on each of 2 "
+            f"streams; {free_small / 2**20:.1f} MiB free in the small pool): {verdict}"
+        )
+    now = cache.stats()
+    assert now["captures"] == before["captures"], ("[gate] the decodes captured again", before, now)
+    assert now["replays"] - before["replays"] == steps > 0, (before, now, steps)
+    del fillers
+    assert all(verdicts.values()), ("[gate] a replay read memory its entry does not own", verdicts)
 
 
 def phase_cross_decode_step(model) -> None:
@@ -1709,12 +1814,15 @@ def k4_launches_per_shape(q_blocks, n_dec, steps, batch=8, beams=5, prompt=3, fr
     return counts
 
 
-def phase_cli(k4: dict, k4_shapes: list):
-    """The int8 CLI at full large-v3 width with random weights, through the
-    port's own parser and orchestrator. K4's launches, counted per shape,
-    must be what ``k4_launches_per_shape`` derives from the code; with
-    ``k4_shapes`` (phase 3's time per shape), K4's device time per CLI run
-    against its floor, Σ launches × ms beside Σ launches × bound."""
+def cli_run(compute_type: str, tmp: str) -> dict:
+    """``python -m whisperx_tpu_torch clip.wav --model large-v3
+    --compute_type <compute_type> ... -f all --highlight_words True`` (beam
+    5, one temperature, alignment on where ``WHISPERX_TPU_ALIGN_DIR`` names a
+    checkpoint) on CLI_AUDIO_S of seed 2, in-process through the port's own
+    parser and orchestrator so that the launch counts can be read. Checks
+    the five files of ``-f all`` and the segments, writes the sixth format
+    (``aud``) with the port's writer from the CLI's JSON, and returns the
+    run's figures."""
     import torch
 
     from whisperx_tpu_torch import quant
@@ -1725,131 +1833,262 @@ def phase_cli(k4: dict, k4_shapes: list):
     from whisperx_tpu_torch.quant import QuantizedLinear
     from whisperx_tpu_torch.transcribe import transcribe_task
     from whisperx_tpu_torch.utils.metrics import GLOBAL_TRACKER
+    from whisperx_tpu_torch.utils.writers import get_writer
 
-    with tempfile.TemporaryDirectory() as tmp:
-        wav = os.path.join(tmp, "clip.wav")
-        save_wav(wav, synth_speech(CLI_AUDIO_S, seed=2))
-        out_dir = os.path.join(tmp, "out")
-        argv = [
-            wav, "--model", "large-v3", "--compute_type", "int8",
-            "--vad_method", "energy", "--language", "en", "-f", "all",
-            "--highlight_words", "True",
-            "--batch_size", "8", "--temperature_increment_on_fallback", "None",
-            "-o", out_dir,
-        ]
-        print(f"[cli] python -m whisperx_tpu_torch {' '.join(argv[1:])}")
-        parser = build_parser()
-        args = parser.parse_args(argv).__dict__
-        GLOBAL_TRACKER.reset()
-        torch.cuda.reset_peak_memory_stats()
-        flash_attention.launches = 0
-        quant_matmul.launches = 0
-        # the host quantization of the decoder, timed around the call that
-        # load_model makes
-        real_quantize, quantize_s = quant.quantize_model, []
+    wav = os.path.join(tmp, "clip.wav")
+    save_wav(wav, synth_speech(CLI_AUDIO_S, seed=2))
+    out_dir = os.path.join(tmp, "out")
+    argv = [
+        wav, "--model", "large-v3", "--compute_type", compute_type,
+        "--vad_method", "energy", "--language", "en", "-f", "all",
+        "--highlight_words", "True",
+        "--batch_size", "8", "--temperature_increment_on_fallback", "None",
+        "-o", out_dir,
+    ]
+    tag = "cli" if compute_type == "int8" else f"cli {compute_type}"
+    print(f"[{tag}] python -m whisperx_tpu_torch {' '.join(argv[1:])}")
+    parser = build_parser()
+    args = parser.parse_args(argv).__dict__
+    GLOBAL_TRACKER.reset()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = 0
+    quant_matmul.launches = 0
+    # the host quantization of the decoder, timed around the call that
+    # load_model makes
+    real_quantize, quantize_s = quant.quantize_model, []
 
-        def timed_quantize(*a, **kw):
-            t = time.perf_counter()
-            out = real_quantize(*a, **kw)
+    def timed_quantize(*a, **kw):
+        t = time.perf_counter()
+        out = real_quantize(*a, **kw)
+        torch.cuda.synchronize()
+        quantize_s.append(time.perf_counter() - t)
+        return out
+
+    quant.quantize_model = timed_quantize
+    # K4's launches by shape, counted around the wrapper
+    t0 = time.perf_counter()
+    try:
+        with k4_by_shape() as shapes:
+            pipe = transcribe_task(args, parser)
             torch.cuda.synchronize()
-            quantize_s.append(time.perf_counter() - t)
-            return out
+    finally:
+        quant.quantize_model = real_quantize
+    wall = time.perf_counter() - t0
+    assert len(quantize_s) == 1, quantize_s
 
-        quant.quantize_model = timed_quantize
-        # K4's launches by shape, counted around the wrapper
-        t0 = time.perf_counter()
-        try:
-            with k4_by_shape() as shapes:
-                pipe = transcribe_task(args, parser)
-                torch.cuda.synchronize()
-        finally:
-            quant.quantize_model = real_quantize
-        by_shape = shapes.counts()
-        wall = time.perf_counter() - t0
-        assert len(quantize_s) == 1, quantize_s
-        k4_launches, k1_launches = quant_matmul.launches, flash_attention.launches
+    model = pipe.model
+    quantized = {
+        name: mod for name, mod in model.named_modules() if isinstance(mod, QuantizedLinear)
+    }
+    bits = int(compute_type[3:])
+    assert all(p.is_cuda and p.dtype == torch.bfloat16 for p in model.parameters())
+    assert all(m.qw.is_cuda and m.qw.dtype == torch.int8 and m.bits == bits for m in quantized.values())
+    q_blocks = {name.split(".")[2] for name in quantized}
+    n_layer = model.dims.n_text_layer
+    assert len(quantized) == 10 * len(q_blocks) and len(q_blocks) == n_layer - 2, q_blocks
+    assert str(n_layer - 1) not in q_blocks and "0" not in q_blocks
 
-        model = pipe.model
-        quantized = {
-            name: mod for name, mod in model.named_modules() if isinstance(mod, QuantizedLinear)
-        }
-        assert all(p.is_cuda and p.dtype == torch.bfloat16 for p in model.parameters())
-        assert all(m.qw.is_cuda and m.qw.dtype == torch.int8 and m.bits == 8 for m in quantized.values())
-        q_blocks = {name.split(".")[2] for name in quantized}
-        n_layer = model.dims.n_text_layer
-        assert len(quantized) == 10 * len(q_blocks) and len(q_blocks) == n_layer - 2, q_blocks
-        assert str(n_layer - 1) not in q_blocks and "0" not in q_blocks
+    report = GLOBAL_TRACKER.report()
+    counters = dict(GLOBAL_TRACKER.counters)
+    n_dec = report["decode"]["calls"]
+    k1_launches = flash_attention.launches
+    assert k1_launches == model.dims.n_audio_layer * n_dec > 0, (k1_launches, n_dec)
 
-        report = GLOBAL_TRACKER.report()
-        counters = dict(GLOBAL_TRACKER.counters)
-        n_dec = report["decode"]["calls"]
-        steps = int(counters["decode_steps"])
-        expected = len(q_blocks) * (2 * n_dec + 8 * (n_dec + steps))
-        assert k4_launches == expected > 0, (k4_launches, expected, n_dec, steps)
-        per_shape = k4_launches_per_shape(len(q_blocks), n_dec, steps)
-        assert dict(by_shape) == per_shape and sum(per_shape.values()) == expected, (by_shape, per_shape)
-        assert k1_launches == model.dims.n_audio_layer * n_dec > 0, (k1_launches, n_dec)
-        k4["launches"] = k4_launches
-
-        for ext in ("txt", "srt", "vtt", "tsv", "json"):
-            assert os.path.getsize(os.path.join(out_dir, f"clip.{ext}")) >= 0
-        with open(os.path.join(out_dir, "clip.json")) as f:
-            result = json.load(f)
-        assert result["language"] == "en" and isinstance(result["segments"], list)
-        # alignment ran (phase 4c's checkpoint): words, and highlighted SRT
-        assert result["segments"] and result["word_segments"], result
-        with open(os.path.join(out_dir, "clip.srt")) as f:
-            assert "<u>" in f.read()
-        for seg in result["segments"]:
-            assert 0.0 <= seg["start"] <= seg["end"] <= CLI_AUDIO_S + ALIGN_END_SLACK_S, seg
+    for ext in ("txt", "srt", "vtt", "tsv", "json"):
+        assert os.path.getsize(os.path.join(out_dir, f"clip.{ext}")) >= 0
+    with open(os.path.join(out_dir, "clip.json")) as f:
+        result = json.load(f)
+    get_writer("aud", out_dir)(result, wav, {})
+    assert os.path.isfile(os.path.join(out_dir, "clip.aud"))
+    assert result["language"] == "en" and isinstance(result["segments"], list)
+    # alignment ran (phase 4c's checkpoint): words, and highlighted SRT
+    assert result["segments"] and result["word_segments"], result
+    with open(os.path.join(out_dir, "clip.srt")) as f:
+        assert "<u>" in f.read()
+    for seg in result["segments"]:
+        assert 0.0 <= seg["start"] <= seg["end"] <= CLI_AUDIO_S + ALIGN_END_SLACK_S, seg
     for stage, st in report.items():
         print(
-            f"[cli] stage {stage}: calls {st['calls']} total {st['total_s']:.4f} s "
+            f"[{tag}] stage {stage}: calls {st['calls']} total {st['total_s']:.4f} s "
             f"min {st['min_s']:.4f} s max {st['max_s']:.4f} s"
         )
-    busy = sum(st["total_s"] for st in report.values())
+    figures = {
+        "pipe": pipe, "quantized": quantized, "q_blocks": len(q_blocks), "n_dec": n_dec,
+        "steps": int(counters["decode_steps"]), "k1": k1_launches, "k4": quant_matmul.launches,
+        "k4_by_shape": shapes.counts(), "wall": wall, "quantize_s": quantize_s[0],
+        "transcription": sum(st["total_s"] for st in report.values()),
+        "peak": torch.cuda.max_memory_allocated(),
+    }
     print(
-        f"[cli] {CLI_AUDIO_S:.0f} s audio: transcription {busy:.3f} s, RTF "
-        f"{CLI_AUDIO_S / busy:.2f}x; whole CLI (load, host quantization "
-        f"{quantize_s[0]:.2f} s, transcription, writers) {wall:.3f} s; "
+        f"[{tag}] {CLI_AUDIO_S:.0f} s audio: transcription {figures['transcription']:.3f} s, RTF "
+        f"{CLI_AUDIO_S / figures['transcription']:.2f}x; whole CLI (load, host quantization "
+        f"{figures['quantize_s']:.2f} s, transcription, writers) {wall:.3f} s; "
         f"{len(result['segments'])} aligned segments, {len(result['word_segments'])} words; "
-        f"{n_dec} decodes, {steps} decode steps "
+        f"{n_dec} decodes, {figures['steps']} decode steps "
         f"(beam 5, {counters.get('batch_used', 0):.0f}/{counters.get('batch_slots', 0):.0f} "
-        f"batch slots); K4 launches {k4_launches} (= {len(q_blocks)} x (2 x {n_dec} + "
-        f"8 x ({n_dec} + {steps}))); K1 launches {k1_launches}; peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
+        f"batch slots); six formats written; K1 launches {k1_launches} "
+        f"(= {model.dims.n_audio_layer} x {n_dec}); peak memory {figures['peak'] / 2**30:.2f} GiB"
+    )
+    return figures
+
+
+def phase_cli(k4: dict, k4_shapes: list):
+    """The int8 CLI at full large-v3 width with random weights (``cli_run``).
+    K4's launches, counted per shape, must be what ``k4_launches_per_shape``
+    derives from the code; with ``k4_shapes`` (phase 3's time per shape),
+    K4's device time per CLI run against its floor, Σ launches × ms beside
+    Σ launches × bound. Returns the int8 model and the run's figures."""
+    import torch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        run = cli_run("int8", tmp)
+    n_dec, steps, q_blocks = run["n_dec"], run["steps"], run["q_blocks"]
+    k4_launches, by_shape = run["k4"], run["k4_by_shape"]
+    expected = q_blocks * (2 * n_dec + 8 * (n_dec + steps))
+    assert k4_launches == expected > 0, (k4_launches, expected, n_dec, steps)
+    per_shape = k4_launches_per_shape(q_blocks, n_dec, steps)
+    assert by_shape == per_shape and sum(per_shape.values()) == expected, (by_shape, per_shape)
+    k4["launches"] = k4_launches
+    print(
+        f"[cli] K4 launches {k4_launches} (= {q_blocks} x (2 x {n_dec} + 8 x ({n_dec} + {steps}))), "
+        "every int8 decoder linear's"
     )
 
     times = {(r["m"], r["k"], r["n"]): r for r in k4_shapes}
-    device_ms = floor_ms = 0.0
-    for shape, n_launch in sorted(per_shape.items()):
-        r = times[shape]
-        device_ms += n_launch * r["ms"]
-        floor_ms += n_launch * r["bound_ms"]
+    if times:  # phase 3's time per shape (not run by the sub-runs)
+        device_ms = floor_ms = 0.0
+        for shape, n_launch in sorted(per_shape.items()):
+            r = times[shape]
+            device_ms += n_launch * r["ms"]
+            floor_ms += n_launch * r["bound_ms"]
+            print(
+                f"[cli] K4 M={shape[0]} K={shape[1]} N={shape[2]} ({r['regime']}): {n_launch} launches "
+                f"x {r['ms']:.4f} ms = {n_launch * r['ms']:.3f} ms (bound {n_launch * r['bound_ms']:.3f} ms)"
+            )
         print(
-            f"[cli] K4 M={shape[0]} K={shape[1]} N={shape[2]} ({r['regime']}): {n_launch} launches "
-            f"x {r['ms']:.4f} ms = {n_launch * r['ms']:.3f} ms (bound {n_launch * r['bound_ms']:.3f} ms)"
+            f"[cli] K4 per CLI run: sum of launches x ms {device_ms:.3f} ms against sum of launches x "
+            f"bound {floor_ms:.3f} ms ({device_ms / floor_ms:.1f}x its floor)"
         )
-    print(
-        f"[cli] K4 per CLI run: sum of launches x ms {device_ms:.3f} ms against sum of launches x "
-        f"bound {floor_ms:.3f} ms ({device_ms / floor_ms:.1f}x its floor)"
-    )
 
     # the beam step's self-KV reorder at this run's shape: every layer's
     # cache [B·K, cache_len, H, Dh] gathered by source beam, once per step
+    model = run.pop("pipe").model
     rows, dims = 8 * 5, model.dims
     shape = (rows, 256, dims.n_text_head, dims.n_text_state // dims.n_text_head)
-    caches = [torch.zeros(shape, dtype=torch.bfloat16, device="cuda") for _ in range(2 * n_layer)]
+    caches = [torch.zeros(shape, dtype=torch.bfloat16, device="cuda") for _ in range(2 * dims.n_text_layer)]
     idx = torch.randint(0, rows, (rows,), device="cuda")
     reorder_ms = cuda_ms(lambda: [c.index_select(0, idx) for c in caches], iters=5, warmup=1)
     gb = sum(c.numel() * c.element_size() for c in caches) / 1e9
     print(
         f"[cli] self-KV reorder per beam step: {gb:.3f} GB read and written "
-        f"({2 * n_layer} x {list(shape)} bf16) in {reorder_ms:.3f} ms"
+        f"({2 * dims.n_text_layer} x {list(shape)} bf16) in {reorder_ms:.3f} ms"
     )
-    del caches, pipe
+    del caches, run["quantized"]
     torch.cuda.empty_cache()
-    return model
+    return model, run
+
+
+def phase_cli_int4(int8: dict) -> None:
+    """The CLI's ``--compute_type int4`` at full large-v3 width
+    (``cli_run``): int4 has no kernel in either package (each product
+    dequantizes, then multiplies), so K4 must launch 0 times, and K1 32
+    times per encoder pass; (a) every int4 ``QuantizedLinear``'s
+    ``dequantize`` on the card equals the same codes' and scales' on the
+    CPU, bit for bit; (b) the decode profile of phase 6 with 5 beams,
+    captured against uncaptured: the same bits, equal launches, K4 at 0;
+    (c) ms per step, the CLI's wall and peak memory printed beside the int8
+    run's (``int8``: ``phase_cli``'s figures and its profile's)."""
+    import torch
+
+    from whisperx_tpu_torch.quant import QuantizedLinear, dequantize
+
+    with tempfile.TemporaryDirectory() as tmp:
+        run = cli_run("int4", tmp)
+    assert run["k4"] == 0 and run["k4_by_shape"] == {}, ("[cli int4] K4 launched", run["k4"])
+    t0 = time.perf_counter()
+    for name, m in run["quantized"].items():
+        on_cpu = QuantizedLinear(m.qw.cpu(), m.scale.cpu(), bits=4, group_size=m.group_size)
+        assert torch.equal(dequantize(m).cpu(), dequantize(on_cpu)), f"[cli int4] dequantize of {name}"
+    print(
+        f"[cli int4] dequantize of all {len(run['quantized'])} int4 decoder linears (bf16, as the "
+        f"products take them): the card's bits equal the CPU's ({time.perf_counter() - t0:.1f} s); "
+        f"K4 launches 0"
+    )
+    model = run.pop("pipe").model
+    del run["quantized"]
+    profile = phase_decode_profile(model, "profile int4", beam_size=5)
+    assert profile["launches"]["K4"] == 0, profile
+    print(
+        f"[cli int4] against int8 in this run: CLI wall {run['wall']:.3f} s (int8 {int8['wall']:.3f}), "
+        f"transcription {run['transcription']:.3f} s (int8 {int8['transcription']:.3f}), host "
+        f"quantization {run['quantize_s']:.2f} s (int8 {int8['quantize_s']:.2f}), peak memory "
+        f"{run['peak'] / 2**30:.2f} GiB (int8 {int8['peak'] / 2**30:.2f}); beam-5 ms per step captured "
+        f"{profile['captured']:.3f} (int8 {int8['captured']:.3f}), uncaptured "
+        f"{profile['uncaptured']:.3f} (int8 {int8['uncaptured']:.3f})"
+    )
+    del model
+    torch.cuda.empty_cache()
+
+
+def phase_float32() -> None:
+    """``load_model("large-v3", compute_type="float32", vad_method="energy",
+    batch_size=8).transcribe`` of F32_AUDIO_S of the main path's synthetic
+    speech (seed 1) at the default temperatures: (a) every K1 launch is on
+    its f32 route (the wrapper's inputs are f32: a shim around
+    ``wholek_attention`` records their dtype) and there are 32 per encoder
+    pass; (b) the decode profile of phase 5 for the f32 model, greedy,
+    captured against uncaptured: the same bits and launches; (c) wall, ms
+    per step and peak memory printed."""
+    import torch
+
+    import whisperx_tpu_torch
+    from whisperx_tpu_torch.ops import flash_attention as fa
+    from whisperx_tpu_torch.utils.metrics import GLOBAL_TRACKER
+
+    t0 = time.perf_counter()
+    pipe = whisperx_tpu_torch.load_model("large-v3", compute_type="float32", vad_method="energy", batch_size=8)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    assert all(p.is_cuda and p.dtype == torch.float32 for p in pipe.model.parameters())
+    audio = synth_speech(F32_AUDIO_S, seed=1)
+    real, dtypes = fa.wholek_attention, []
+
+    def recorded(q, *args, **kwargs):
+        dtypes.append(q.dtype)
+        return real(q, *args, **kwargs)
+
+    GLOBAL_TRACKER.reset()
+    torch.cuda.reset_peak_memory_stats()
+    fa.flash_attention.launches = 0
+    fa.wholek_attention = recorded
+    t0 = time.perf_counter()
+    try:
+        result = pipe.transcribe(audio, language="en")
+        torch.cuda.synchronize()
+    finally:
+        fa.wholek_attention = real
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    report, counters = GLOBAL_TRACKER.report(), dict(GLOBAL_TRACKER.counters)
+    passes, launches = report["decode"]["calls"], fa.flash_attention.launches
+    assert launches == pipe.model.dims.n_audio_layer * passes > 0, (launches, passes)
+    assert len(dtypes) == launches and set(dtypes) == {torch.float32}, (len(dtypes), set(dtypes))
+    for seg in result["segments"]:
+        assert 0.0 <= seg["start"] < seg["end"] <= F32_AUDIO_S + 1e-6, seg
+    steps = int(counters.get("decode_steps", 0))
+    print(
+        f"[f32] load_model large-v3 float32 {load_s:.2f} s; {F32_AUDIO_S:.0f} s audio in {wall:.3f} s: RTF "
+        f"{F32_AUDIO_S / wall:.2f}x; {len(result['segments'])} segments; encoder passes {passes}; K1 launches "
+        f"{launches} (= {pipe.model.dims.n_audio_layer} x {passes}), every one on the f32 route; decode steps "
+        f"{steps} ({wall / max(steps, 1) * 1e3:.3f} ms of wall a step); peak memory {peak / 2**30:.2f} GiB"
+    )
+    profile = phase_decode_profile(pipe.model, "profile f32")
+    print(
+        f"[f32] greedy batch {PROFILE_BATCH} ms per step captured {profile['captured']:.3f}, uncaptured "
+        f"{profile['uncaptured']:.3f}"
+    )
+    del pipe
+    torch.cuda.empty_cache()
 
 
 def phase_small_model() -> None:
@@ -4481,6 +4720,7 @@ def main() -> int:
         pipe = whisperx_tpu_torch.load_model("large-v3", vad_method="energy", batch_size=8,
                                              compute_type="bfloat16")
         timed(phase_decode_profile, pipe.model)
+        timed(phase_eviction_gate, pipe.model)
         timed(phase_cross_decode_step, pipe.model)
         with cross_decode_opt_in():
             timed(phase_decode_profile, pipe.model, "profile cross-decode", k3={}, label=" (cross-decode)")
@@ -4491,6 +4731,18 @@ def main() -> int:
                                              compute_type="int8")
         timed(phase_decode_profile, pipe.model, "profile int8", beam_size=5, label=" (int8)")
         print(f"[done] {REPO}: decode phases passed in {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if sys.argv[1:] == ["--precisions"]:  # phases 6 (without K4's times), 6b and 6c alone
+        with tempfile.TemporaryDirectory() as align_root:
+            os.environ["WHISPERX_TPU_ALIGN_DIR"] = make_align_checkpoint(align_root)
+            model, cli8 = timed(phase_cli, {}, [])
+            cli8.update(timed(phase_decode_profile, model, "profile int8", beam_size=5, label=" (int8)"))
+            del model
+            torch.cuda.empty_cache()
+            timed(phase_cli_int4, cli8)
+            del os.environ["WHISPERX_TPU_ALIGN_DIR"]
+        timed(phase_float32)
+        print(f"[done] {REPO}: precision phases passed in {time.perf_counter() - t_start:.1f} s")
         return 0
     k1, k1_f32, k1b, k2 = timed(phase_kernels)
     k4, k4_shapes = timed(phase_k4)
@@ -4520,6 +4772,7 @@ def main() -> int:
         os.environ["WHISPERX_TPU_ALIGN_DIR"] = make_align_checkpoint(align_root)
         timed(phase_alignment, main_result["segments"])
         timed(phase_decode_profile, pipe.model)
+        timed(phase_eviction_gate, pipe.model)
         timed(phase_cross_decode_step, pipe.model)
         with cross_decode_opt_in():
             timed(phase_decode_profile, pipe.model, "profile cross-decode", k3=k3, label=" (cross-decode)")
@@ -4530,12 +4783,14 @@ def main() -> int:
         del pipe
         torch.cuda.empty_cache()
         timed(phase_sequential)
-        model = timed(phase_cli, k4, k4_shapes)
+        model, cli8 = timed(phase_cli, k4, k4_shapes)
+        cli8.update(timed(phase_decode_profile, model, "profile int8", beam_size=5, label=" (int8)"))
+        timed(phase_speculative_int8, model, k4_shapes)
+        del model
+        torch.cuda.empty_cache()
+        timed(phase_cli_int4, cli8)
         del os.environ["WHISPERX_TPU_ALIGN_DIR"]
-    timed(phase_decode_profile, model, "profile int8", beam_size=5, label=" (int8)")
-    timed(phase_speculative_int8, model, k4_shapes)
-    del model
-    torch.cuda.empty_cache()
+    timed(phase_float32)
     timed(phase_vads)
     timed(phase_diarization, main_result)
     timed(phase_convert)

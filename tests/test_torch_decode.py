@@ -78,11 +78,13 @@ def test_filters_match_jax(tokenizers, step):
     cases = [
         (
             JF.suppress_blank(jnp.asarray(logits), jstate, blank, jtok.eot),
-            TF.suppress_blank(torch.from_numpy(logits), tstate, blank, ttok.eot),
+            TF.suppress_blank(
+                torch.from_numpy(logits), tstate, TF._id_mask(DIMS.n_vocab, blank + (ttok.eot,), "cpu")
+            ),
         ),
         (
             JF.suppress_tokens(jnp.asarray(logits), suppress),
-            TF.suppress_tokens(torch.from_numpy(logits), suppress),
+            TF.suppress_tokens(torch.from_numpy(logits), TF._id_mask(DIMS.n_vocab, suppress, "cpu")),
         ),
     ]
     for max_init in (None, 50):

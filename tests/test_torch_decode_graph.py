@@ -120,14 +120,10 @@ def test_host_read_guard_catches_a_read():
         bool(torch.ones(2).all())
 
 
-@pytest.mark.parametrize("kind", ["greedy", "sampled", "beam"])
-@pytest.mark.parametrize("kv_quant", [False, True])
-def test_step_bodies_read_nothing_back(params, tokenizers, kind, kv_quant):
-    """Three steps of each static body after a prefill, under a dispatch
-    mode that raises on ``_local_scalar_dense`` (``.item()``, ``bool()``)
-    and ``nonzero``: a captured step must not read the device."""
-    _, ttok = tokenizers
-    model = _torch_model(params)
+def _prefilled_step(model, ttok, kind, kv_quant):
+    """A step body of ``kind`` over buffers allocated and started for two
+    rows of random audio features, after the prefill: ``(buffers, body,
+    rows)``, rows being B·K."""
     dec = model.decoder
     cfg = _cfg(ttok, greedy=kind != "sampled", kv_quant=kv_quant)
     b, k = 2, 3 if kind == "beam" else 1
@@ -151,12 +147,55 @@ def test_step_bodies_read_nothing_back(params, tokenizers, kind, kv_quant):
             body = lambda: _sample_step(dec, s, cfg)
         logits = decoder_forward(dec, init, s.cache, 0, cfg.n_head, beam_groups=k)
         s.last_logits.copy_(logits[:, -1])
-        with NoHostReads():
+    return s, body, b * k
+
+
+@pytest.mark.parametrize("kind", ["greedy", "sampled", "beam"])
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_step_bodies_read_nothing_back(params, tokenizers, kind, kv_quant):
+    """Three steps of each static body after a prefill, under a dispatch
+    mode that raises on ``_local_scalar_dense`` (``.item()``, ``bool()``)
+    and ``nonzero``: a captured step must not read the device."""
+    _, ttok = tokenizers
+    s, body, rows = _prefilled_step(_torch_model(params), ttok, kind, kv_quant)
+    with torch.inference_mode(), NoHostReads():
+        for _ in range(3):
+            body()
+    n_init = len(ttok.sot_sequence)
+    assert s.state.step.tolist() == [3] * rows
+    assert s.offset.tolist() == [n_init + 3] * rows
+    assert torch.isfinite(s.last_logits).any(dim=-1).all()
+
+
+@pytest.mark.parametrize("kind", ["greedy", "sampled", "beam"])
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_step_bodies_own_their_masks(params, tokenizers, kind, kv_quant, monkeypatch):
+    """A replay reads the filter masks by address, and a graph keeps
+    nothing alive: the buffers must own them. Three steps of each static
+    body run with ``filters._id_mask`` patched to raise once the buffers
+    are allocated (so no step builds or looks up a mask), and give the
+    bits of the same steps run unpatched: tokens, filter state, scores,
+    logits and caches."""
+    _, ttok = tokenizers
+    model = _torch_model(params)
+
+    def raises(*args):
+        raise AssertionError("a step body built a filter mask")
+
+    runs = []
+    for patched in (False, True):
+        s, body, _ = _prefilled_step(model, ttok, kind, kv_quant)
+        with monkeypatch.context() as m, torch.inference_mode():
+            if patched:
+                m.setattr(TF, "_id_mask", raises)
             for _ in range(3):
                 body()
-    assert s.state.step.tolist() == [3] * (b * k)
-    assert s.offset.tolist() == [init.shape[1] + 3] * (b * k)
-    assert torch.isfinite(s.last_logits).any(dim=-1).all()
+        runs.append(step_graph._leaves(s))
+    assert s.state.step.tolist() == [3] * len(s.state.step)
+    want, got = runs
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 def test_per_row_cache_write_casts_like_the_slice_write(params, mels, tokenizers):

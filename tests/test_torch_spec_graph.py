@@ -116,6 +116,41 @@ def test_spec_body_reads_nothing_back(weights, mels):
     assert len(calls) == total
 
 
+@pytest.mark.parametrize("wt", [False, True], ids=["timestamps", "without_timestamps"])
+def test_spec_body_owns_its_masks(weights, mels, wt):
+    """A replay reads the filter masks by address, and a graph keeps nothing
+    alive: ``_SpecBuffers`` must own them, for the target's filters and the
+    draft's. Every iteration of a ``self:1`` decode (γ 2) runs with
+    ``filters._id_mask`` patched to raise (the buffers are allocated before
+    the first), and the decode gives the bits of the same decode unpatched."""
+    from whisperx_tpu_torch.decoding import filters
+
+    model = _bridge(weights[0])
+    spec = tspec.SpeculativeDecoder(model, tspec.truncated_self_draft(model, 1), 2)
+    want = _port(spec, mels[:2], wt, eager=True)
+    real_step, real_mask, calls = tspec._spec_step, filters._id_mask, []
+
+    def raises(*args):
+        raise AssertionError("an iteration body built a filter mask")
+
+    def no_mask_built(*args):
+        filters._id_mask = raises
+        try:
+            real_step(*args)
+        finally:
+            filters._id_mask = real_mask
+        calls.append(1)
+
+    tspec._spec_step = no_mask_built
+    try:
+        got = _port(spec, mels[:2], wt, eager=True)
+    finally:
+        tspec._spec_step = real_step
+    assert len(calls) == got[1] == want[1] >= 2
+    for name, g, w in zip(NAMES, got[0], want[0]):
+        np.testing.assert_array_equal(g, w, err_msg=name)
+
+
 # ---------------------------------------------------------------------------
 # Replayed speculative decodes: the fresh decodes' bits, and JAX's results
 # ---------------------------------------------------------------------------

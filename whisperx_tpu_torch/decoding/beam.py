@@ -43,6 +43,7 @@ from whisperx_tpu_torch.decoding.decode import (
     _apply_filters,
     _cache_len,
     _cross_kv,
+    _filter_masks,
     _reset_state,
     _state_buffers,
     _step_config,
@@ -132,12 +133,15 @@ class _BeamBuffers:
     bank_lengths: torch.Tensor  # [B, C + 1] int64
     bank_count: torch.Tensor  # [B] int64
     n_sampled: torch.Tensor  # [] int64
+    suppress_mask: torch.Tensor  # [V] bool
+    blank_mask: torch.Tensor  # [V] bool: the blank tokens and EOT
 
     @classmethod
     def allocate(cls, dec, cross_k, cross_v, b: int, k: int, c: int, cache_len: int, cfg):
         device = dec.tok_emb.device
         bk = b * k
         i64 = dict(dtype=torch.int64, device=device)
+        suppress_mask, blank_mask = _filter_masks(cfg, dec.tok_emb.shape[0], device)
         return cls(
             cache=KVCache(*new_self_cache(dec, bk, cache_len, cfg.n_head), list(cross_k), list(cross_v)),
             state=_state_buffers(bk, device),
@@ -150,6 +154,8 @@ class _BeamBuffers:
             bank_lengths=torch.empty((b, c + 1), **i64),
             bank_count=torch.empty((b,), **i64),
             n_sampled=torch.empty((), **i64),
+            suppress_mask=suppress_mask,
+            blank_mask=blank_mask,
         )
 
     def start(self, cross_k, cross_v, init_bk: torch.Tensor, k: int, eot: int) -> None:
@@ -174,7 +180,7 @@ def _beam_step(dec, s: _BeamBuffers, cfg, k: int, c: int) -> None:
     run on the new tokens. Reads no value back to the host (a captured
     step's body)."""
     b = s.bank_count.shape[0]
-    logits = _apply_filters(s.last_logits, s.state, cfg)  # [B·K, V]
+    logits = _apply_filters(s.last_logits, s.state, cfg, s.suppress_mask, s.blank_mask)  # [B·K, V]
     logprobs = torch.log_softmax(logits, dim=-1)
     vocab = logprobs.shape[-1]
     cand = (s.scores[:, None] + logprobs).reshape(b, k * vocab)

@@ -113,13 +113,26 @@ class _StaticConfig:
     kv_quant: bool = False
 
 
-def _apply_filters(logits, state, cfg: _StaticConfig):
+def _filter_masks(cfg: _StaticConfig, n_vocab: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``cfg``'s suppress mask and its blank-and-EOT mask, [V] bool each:
+    new tensors that the caller owns. A captured step reads them by
+    address, so its static buffers hold them for as long as its graph
+    lives; an uncaptured decode builds them once."""
+    return (
+        F._id_mask(n_vocab, cfg.suppress, device),
+        F._id_mask(n_vocab, cfg.blank_tokens + (cfg.eot,), device),
+    )
+
+
+def _apply_filters(logits, state, cfg: _StaticConfig, suppress_mask, blank_mask):
+    """The filter chain over ``logits`` [B, V] in f32, with the masks of
+    ``_filter_masks(cfg, ...)``."""
     logits = logits.float()
     if cfg.suppress_blank:
         # upstream SuppressBlank masks blank openings AND EOT at the first
         # sampled step, only when the filter is enabled
-        logits = F.suppress_blank(logits, state, cfg.blank_tokens, cfg.eot)
-    logits = F.suppress_tokens(logits, cfg.suppress)
+        logits = F.suppress_blank(logits, state, blank_mask)
+    logits = F.suppress_tokens(logits, suppress_mask)
     if not cfg.without_timestamps:
         logits = F.apply_timestamp_rules(
             logits,
@@ -193,6 +206,8 @@ class _SampleBuffers:
     offset: torch.Tensor  # [B] int64: the next token's position
     temperature: torch.Tensor  # [] f32
     noise: Optional[torch.Tensor]  # [B, V] f32
+    suppress_mask: torch.Tensor  # [V] bool
+    blank_mask: torch.Tensor  # [V] bool: the blank tokens and EOT
 
     @classmethod
     def allocate(cls, dec, cross_k, cross_v, rows: int, cache_len: int, cfg: _StaticConfig):
@@ -200,6 +215,7 @@ class _SampleBuffers:
         device = dec.tok_emb.device
         vocab = dec.tok_emb.shape[0]
         f32 = dict(dtype=torch.float32, device=device)
+        suppress_mask, blank_mask = _filter_masks(cfg, vocab, device)
         return cls(
             cache=KVCache(*new_self_cache(dec, rows, cache_len, cfg.n_head), list(cross_k), list(cross_v)),
             state=_state_buffers(rows, device),
@@ -210,6 +226,8 @@ class _SampleBuffers:
             offset=torch.empty((rows,), dtype=torch.int64, device=device),
             temperature=torch.empty((), **f32),
             noise=None if cfg.greedy else torch.empty((rows, vocab), **f32),
+            suppress_mask=suppress_mask,
+            blank_mask=blank_mask,
         )
 
     def start(self, cross_k, cross_v, initial_tokens, temperature: float, eot: int) -> None:
@@ -227,7 +245,7 @@ def _sample_step(dec, s: _SampleBuffers, cfg: _StaticConfig) -> None:
     the log-probability, write the token at the state's ``step``, advance
     the state, and run the decoder on the token at ``s.offset``. Reads no
     value back to the host (a captured step's body)."""
-    logits = _apply_filters(s.last_logits, s.state, cfg)
+    logits = _apply_filters(s.last_logits, s.state, cfg, s.suppress_mask, s.blank_mask)
     if cfg.greedy:
         sampled = torch.argmax(logits, dim=-1)
     else:

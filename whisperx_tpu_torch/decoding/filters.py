@@ -7,12 +7,15 @@ tensor in the decode loops (``decode.py``, ``beam.py``: a captured step
 may hold no Python value that changes from step to step; the speculative
 decode's rows advance at their own pace), or a Python int where every row
 has sampled as many tokens and the caller branches on it on the host.
+
+SuppressBlank and SuppressTokens take their [V] masks as arguments, built
+by ``_id_mask``. JAX compiles its masks into the program; a captured step
+here reads them by address, so the step's static buffers own them.
 """
 
 from __future__ import annotations
 
-import functools
-from typing import NamedTuple, Optional, Sequence, Tuple, Union
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -72,9 +75,11 @@ def advance_filter_state_(
     state.step.add_(1)
 
 
-@functools.lru_cache(maxsize=64)
 def _id_mask(n_vocab: int, ids: Tuple[int, ...], device: torch.device) -> torch.Tensor:
-    """Boolean vocab mask, built once per (vocab, ids, device)."""
+    """A new boolean vocab mask, True at ``ids``. Each call builds its own
+    tensor, which the caller owns: a captured decode step reads its masks
+    by address, so they live in the step's buffers
+    (``decode.py::_filter_masks``), never in a shared cache."""
     mask = torch.zeros((n_vocab,), dtype=torch.bool)
     if ids:
         mask[list(ids)] = True
@@ -82,24 +87,19 @@ def _id_mask(n_vocab: int, ids: Tuple[int, ...], device: torch.device) -> torch.
 
 
 def suppress_blank(
-    logits: torch.Tensor,
-    state: FilterState,
-    blank_tokens: Sequence[int],
-    eot: int,
+    logits: torch.Tensor, state: FilterState, mask: torch.Tensor
 ) -> torch.Tensor:
-    """At the first sampled position, forbid blank/EOT openings."""
+    """At the first sampled position, forbid the tokens of ``mask`` [V]:
+    the blank openings and EOT."""
     if not torch.is_tensor(state.step) and state.step != 0:
         return logits
-    mask = _id_mask(logits.shape[-1], tuple(blank_tokens) + (eot,), logits.device)
     if torch.is_tensor(state.step):
         return logits.masked_fill((state.step == 0)[:, None] & mask[None], NEG_INF)
     return logits.masked_fill(mask[None], NEG_INF)
 
 
-def suppress_tokens(logits: torch.Tensor, token_ids: Sequence[int]) -> torch.Tensor:
-    if not token_ids:
-        return logits
-    mask = _id_mask(logits.shape[-1], tuple(token_ids), logits.device)
+def suppress_tokens(logits: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Forbid the tokens of ``mask`` [V] at every position."""
     return logits.masked_fill(mask[None], NEG_INF)
 
 

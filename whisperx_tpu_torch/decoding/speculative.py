@@ -46,6 +46,7 @@ from whisperx_tpu_torch.decoding.decode import (
     _apply_filters,
     _build_initial_tokens,
     _cache_len,
+    _filter_masks,
     _reset_state,
     _state_buffers,
     _step_config,
@@ -126,6 +127,9 @@ class _SpecBuffers:
         device = dec.tok_emb.device
         n_vocab = dec.tok_emb.shape[0]
         i64 = dict(dtype=torch.int64, device=device)
+        # the draft shares the target's vocabulary, suppress list and blank
+        # tokens (``_configs``): these masks are its filters' too
+        suppress_mask, blank_mask = _filter_masks(cfg, n_vocab, device)
         t_cache = KVCache(*new_self_cache(dec, b, t_len, cfg.n_head), list(t_cross[0]), list(t_cross[1]))
         if shared:
             n_draft = len(draft.decoder.blocks)
@@ -148,8 +152,8 @@ class _SpecBuffers:
             state=_state_buffers(b, device),
             js=torch.arange(gamma + 1, **i64),
             back=torch.tensor([1, 2], **i64),
-            suppress_mask=F._id_mask(n_vocab, cfg.suppress, device),
-            blank_mask=F._id_mask(n_vocab, cfg.blank_tokens + (cfg.eot,), device),
+            suppress_mask=suppress_mask,
+            blank_mask=blank_mask,
         )
 
     def start(self, t_cross, d_cross, initial_tokens, cfg: _StaticConfig) -> None:
@@ -207,7 +211,9 @@ def _spec_step(t_dec, d_dec, s: _SpecBuffers, cfg: _StaticConfig, d_cfg: _Static
     # --- the draft proposes γ tokens; step 1 re-feeds last_tok -----------
     d_state, prev, draft_toks = state, s.last_tok, []
     for g in range(gamma):
-        fl = _apply_filters(d_forward(prev[:, None], pos + g)[:, -1], d_state, d_cfg)
+        fl = _apply_filters(
+            d_forward(prev[:, None], pos + g)[:, -1], d_state, d_cfg, s.suppress_mask, s.blank_mask
+        )
         prev = torch.argmax(fl, -1)
         d_state = F.update_filter_state(d_state, prev, cfg.timestamp_begin)
         draft_toks.append(prev)
@@ -260,7 +266,7 @@ def _spec_step(t_dec, d_dec, s: _SpecBuffers, cfg: _StaticConfig, d_cfg: _Static
         draft_ext = torch.cat([draft_toks, torch.full_like(draft_toks[:, :1], -1)], 1)
         writing, w, n_match = active, zeros, zeros
         for j in range(gamma + 1):
-            fl = _apply_filters(v_logits[:, j], state, cfg)
+            fl = _apply_filters(v_logits[:, j], state, cfg, s.suppress_mask, s.blank_mask)
             choice = torch.argmax(fl, -1)
             lp = torch.log_softmax(fl, -1).gather(1, choice[:, None])[:, 0]
             write = writing & (n + j < cfg.sample_len)
@@ -656,6 +662,7 @@ class SpeculativeDecoder:
             return decoder_forward(draft.decoder, toks, d_cache, offset, d_cfg.n_head)[:, -1]
 
         init_arr = torch.tensor([initial], dtype=torch.int64, device=mel.device)
+        masks = _filter_masks(cfg, target.dims.n_vocab, mel.device)  # the draft's too
         t_logits = t_step(initial, 0)
         d_last_logits = d_step(initial, 0)
         no_speech_prob = float(
@@ -675,7 +682,7 @@ class SpeculativeDecoder:
             for g in range(self.gamma):
                 if cur + g >= cfg.sample_len:
                     break
-                tok = int(torch.argmax(_apply_filters(d_last, d_state, d_cfg)[0]))
+                tok = int(torch.argmax(_apply_filters(d_last, d_state, d_cfg, *masks)[0]))
                 draft_tokens.append(tok)
                 d_state = F.update_filter_state(
                     d_state, torch.tensor([tok], device=mel.device), cfg.timestamp_begin
@@ -696,7 +703,7 @@ class SpeculativeDecoder:
             accepted = 0
             stream = torch.cat([last_target_logits[:, None], v_logits], 1)
             for j, proposed in enumerate(draft_tokens):
-                fl = _apply_filters(stream[:, j], state, cfg)
+                fl = _apply_filters(stream[:, j], state, cfg, *masks)
                 t_choice = int(torch.argmax(fl[0]))
                 tokens.append(t_choice)
                 sum_logprob += float(torch.log_softmax(fl[0], -1)[t_choice])

@@ -11,11 +11,13 @@ become one (a speculative iteration's γ draft passes, verify pass and γ+1
 acceptance steps too).
 
 A step body reads and writes only static buffers, in place: the self-KV
-cache, the cross-KV, the filter state, the token buffer and the loop's
-counters (``decode.py::_SampleBuffers``, ``beam.py::_BeamBuffers``,
+cache, the cross-KV, the filter state and masks, the token buffer and the
+loop's counters (``decode.py::_SampleBuffers``, ``beam.py::_BeamBuffers``,
 ``speculative.py::_SpecBuffers``). No Python value inside it depends on the
 step number: the offset, the filter state's ``step`` and the token index
-are device tensors. The CPU, and the decodes that stay eager on the card
+are device tensors. A graph does not keep alive what it reads: every tensor
+a replay reads that the capture did not allocate is the decoder's (keyed
+by ``weights_fingerprint``) or the entry's buffers'. The CPU, and the decodes that stay eager on the card
 (tensor-parallel ones), run the same body uncaptured, on buffers of their
 own. A data-parallel split captures as a single-card decode does: each
 replica's decode checks out an entry of its own, and replicas on one
