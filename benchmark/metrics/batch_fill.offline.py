@@ -1,0 +1,3 @@
+"""``batch_fill.offline``: see ``harness/readers.py::batch_fill``."""
+
+from harness.readers import batch_fill as read  # noqa: F401

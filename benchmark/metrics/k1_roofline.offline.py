@@ -1,0 +1,3 @@
+"""``k1_roofline.offline``: see ``harness/readers.py::k1_roofline``."""
+
+from harness.readers import k1_roofline as read  # noqa: F401

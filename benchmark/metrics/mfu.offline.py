@@ -1,0 +1,3 @@
+"""``mfu.offline``: see ``harness/readers.py::mfu``."""
+
+from harness.readers import mfu as read  # noqa: F401
