@@ -1,0 +1,3 @@
+"""``prefill_ms.serve``: see ``harness/spans.py::prefill_ms``."""
+
+from harness.spans import prefill_ms as read  # noqa: F401

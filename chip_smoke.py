@@ -1386,7 +1386,8 @@ def graph_line(tag: str, model, before: dict, attr: str = "_step_graphs") -> dic
     print(
         f"[graph] {tag}: captures {now['captures'] - before['captures']}, replays "
         f"{now['replays'] - before['replays']}; cache entries {now['entries']}, static buffers "
-        f"{now['static_bytes'] / 2**20:.1f} MiB; device memory allocated "
+        f"{now['static_bytes'] / 2**20:.1f} MiB, graph pools {now['pool_bytes'] / 2**20:.1f} MiB; "
+        f"device memory allocated "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB"
     )
     return now

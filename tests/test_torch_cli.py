@@ -26,6 +26,7 @@ from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 DIMS = MODEL_DIMS["test-nano"]
 JAX_ACTIONS = {a.dest: a for a in jax_build_parser()._actions}
 OWN_DEFAULTS = {"device": ("tpu", "cuda")}  # (JAX's, the port's)
+OWN_FLAGS = {"trace_spans"}  # the port's span records (utils/metrics.py)
 OUTPUTS = ("json", "srt", "tsv", "txt", "vtt")
 
 
@@ -44,7 +45,8 @@ def test_parser_flag_matches_jax(dest):
 
 
 def test_parser_has_no_flag_of_its_own():
-    assert {a.dest for a in build_parser()._actions} == set(JAX_ACTIONS)
+    """Every flag is JAX's, but the port's ``--trace_spans``."""
+    assert {a.dest for a in build_parser()._actions} == set(JAX_ACTIONS) | OWN_FLAGS
 
 
 def test_version_names_the_port(capsys):

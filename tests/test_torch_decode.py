@@ -231,3 +231,57 @@ def test_best_of_keeps_the_best_candidate_per_row(models, mels, tokenizers):
         rows = range(3 * i, 3 * i + 3)
         best = max(rows, key=lambda j: sum_lp[j] / (lengths[j] + 1))
         assert r.tokens == toks[best, : lengths[best]].tolist()
+
+
+@pytest.fixture
+def span_records():
+    from whisperx_tpu_torch.utils.metrics import GLOBAL_TRACKER
+
+    GLOBAL_TRACKER.reset()
+    GLOBAL_TRACKER.record_spans()
+    yield GLOBAL_TRACKER
+    GLOBAL_TRACKER.record_spans(None)
+    GLOBAL_TRACKER.reset()
+
+
+@pytest.mark.parametrize("beam_size", [None, 2], ids=["greedy", "beam"])
+def test_decode_parts_are_spans_inside_decode(models, mels, tokenizers, span_records, tmp_path, beam_size):
+    """``decode.encoder``, ``decode.prefill``, ``decode.steps`` and
+    ``decode.readback`` are records inside the caller's ``decode`` span,
+    with its id; their host time is at most the parent's and at least 90%
+    of it; every step ran through the step runner (``step_replays``), whose
+    pairs lie inside the loop; on the CPU the device time is the host's."""
+    import json
+
+    tracker = span_records
+    _, tmodel = models
+    _, ttok = tokenizers
+    mel = torch.from_numpy(mels[:1])
+    opts = DecodingOptions(language="en", sample_len=16, beam_size=beam_size, without_timestamps=True)
+    decode(tmodel, mel, opts, tokenizer=ttok)  # first-call costs stay out of the reading
+    tracker.reset()
+    from whisperx_tpu_torch.decoding.decode import decode_finalize
+
+    with tracker.track("decode"):
+        handle = decode_dispatch(tmodel, mel, opts, tokenizer=ttok)
+        decode_finalize(handle)
+    parts = ("decode.encoder", "decode.prefill", "decode.steps", "decode.readback")
+    report = tracker.report()
+    assert all(report[p]["parent"] == "decode" and report[p]["calls"] == 1 for p in parts)
+    assert report["decode"]["parent"] is None
+    host = sum(report[p]["total_s"] for p in parts)
+    assert 0.9 * report["decode"]["total_s"] <= host <= report["decode"]["total_s"]
+    c = tracker.counters
+    assert c["step_replays"] == handle["steps"] == 16
+    assert 0 < c["step_replay_device_s"] <= c["step_loop_device_s"] <= c["decode.steps.device_s"]
+    for p in parts[:3]:
+        assert 0 < c[p + ".device_s"] <= report[p]["total_s"]
+
+    path = str(tmp_path / "spans.json")
+    assert tracker.write_spans(path) == 5
+    events = {e["name"]: e for e in json.load(open(path))["traceEvents"]}
+    outer = events["decode"]
+    for p in parts:
+        e = events[p]
+        assert e["args"]["parent"] == outer["args"]["span"] and e["args"]["id"] == outer["args"]["id"]
+        assert outer["ts"] <= e["ts"] and e["ts"] + e["dur"] <= outer["ts"] + outer["dur"]

@@ -12,6 +12,7 @@ kernel source, and launch counts that lose nothing.
 """
 
 import dataclasses
+import json
 import threading
 import time
 import types
@@ -297,6 +298,41 @@ def test_batcher_coalesces_across_requests():
     assert seen[0]["task"] == [None] * 4 and seen[0]["initial_prompt"] == [None] * 4
     for r in reqs:
         assert r.result["segments"][0]["text"] == f"len{len(r.audio)}"
+
+
+def test_batcher_wait_is_drain_wait_and_bucket_wait(tmp_path):
+    """One drain of a 3 s and an 8 s clip makes two calls, one per duration
+    bucket: each request's wait before its call is its wait for the drain
+    plus its wait behind the drain's earlier buckets (``drain_wait_s`` +
+    ``bucket_wait_s`` == ``total_wait_s``), and the second bucket's request
+    waited out the first call. The tracker's records carry each request's
+    and call's ids."""
+    from whisperx_tpu_torch.utils.metrics import GLOBAL_TRACKER
+
+    pipe = FakeCoalescingPipeline()
+    real = pipe.transcribe_many
+    pipe.transcribe_many = lambda audios, **kw: (time.sleep(0.05), real(audios, **kw))[1]
+    batcher = ContinuousBatcher(pipe, BatchConfig(max_wait_ms=0))
+    GLOBAL_TRACKER.reset()
+    GLOBAL_TRACKER.record_spans()
+    try:
+        reqs = [batcher.submit(np.zeros(n * 16000, np.float32), request_id=f"r{n}") for n in (3, 8)]
+        time.sleep(0.02)
+        assert batcher._drain_once(initial_wait_s=1.0)
+        GLOBAL_TRACKER.write_spans(str(tmp_path / "spans.json"))
+    finally:
+        GLOBAL_TRACKER.record_spans(None)
+    assert pipe.many_calls == [1, 1] and all(r.done.is_set() for r in reqs)
+    st = batcher.stats_snapshot()
+    assert st["drain_wait_s"] + st["bucket_wait_s"] == pytest.approx(st["total_wait_s"], rel=1e-12)
+    assert st["drain_wait_s"] >= 2 * 0.02
+    events = json.load(open(tmp_path / "spans.json"))["traceEvents"]
+    waits = {(e["name"], e["args"]["request"]): (e["dur"] / 1e6, e["args"]["call"]) for e in events}
+    assert waits[("serve.bucket_wait", "r3")][0] < 0.05 <= waits[("serve.bucket_wait", "r8")][0]
+    assert [waits[("serve.call", r)][1] for r in ("r3", "r8")] == [0, 1]
+    report = GLOBAL_TRACKER.report()
+    assert {report[n]["calls"] for n in ("serve.drain_wait", "serve.bucket_wait", "serve.call")} == {2}
+    GLOBAL_TRACKER.reset()
 
 
 # -- the chunker and the streaming transcriber -------------------------------

@@ -890,7 +890,7 @@ def test_help_shows_jax_flags_with_cuda_default(capsys):
 
     want = set(re.findall(r"--\w+", _flags(jax_main, ["--help"], capsys)))
     got = set(re.findall(r"--\w+", _flags(main, ["--help"], capsys)))
-    assert got == want and "--device" in got
+    assert got == want | {"--trace_spans"} and "--device" in got  # the port's span records
     defaults = vars(build_parser().parse_args([]))
     assert defaults["device"] == "cuda" and defaults["port"] == 9090
     assert defaults["data_parallel"] == "auto" and defaults["n_model"] == 1

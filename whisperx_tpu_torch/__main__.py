@@ -2,8 +2,10 @@
 parity with reference whisperx/__main__.py:17-95), run by the PyTorch/CUDA
 port.
 
-Two differences: ``--device`` defaults to ``cuda`` (the card given by
-``--device_index``) and takes ``cpu``; ``--version`` names the port. Flags of
+Three differences: ``--device`` defaults to ``cuda`` (the card given by
+``--device_index``) and takes ``cpu``; ``--version`` names the port; one flag
+is the port's own, ``--trace_spans PATH``, which writes the tracker's span
+records (``utils/metrics.py``) as a Chrome trace at the end. Flags of
 stages the port does not run yet raise ``NotImplementedError`` naming the
 ROADMAP.md item that brings them (``transcribe.py``).
 
@@ -98,6 +100,7 @@ def build_parser() -> argparse.ArgumentParser:
 
     parser.add_argument("--print_progress", type=str2bool, default=False, help="print percent-complete lines inside the transcribe/align phases")
     parser.add_argument("--log_json", type=str, default=None, help="write structured JSON-lines stage metrics (per-stage RTF, tokens/s, batch fill) to this path")
+    parser.add_argument("--trace_spans", type=str, default=None, help="keep a record of every span of the pipeline (stages, the decode's parts) and write them to this path as one Chrome trace JSON at the end, on the clock of torch.profiler's traces")
     parser.add_argument("--version", "-V", action="version", version=f"whisperx-tpu-torch {__version__}", help="Show version information and exit")
     parser.add_argument("--python-version", "-P", action="version", version=f"Python {platform.python_version()} ({platform.python_implementation()})", help="Show python version information and exit")
     # fmt: on

@@ -365,8 +365,12 @@ class TranscriptionPipeline:
                 for a, lg, tk, pr in zip(audios, req_langs, req_tasks, req_prompts)
             ]
 
-        devs = [upload_audio(a, self.device) for a in audios]
-        with _tracker.track("vad", sum(len(a) for a in audios) / SAMPLE_RATE):
+        audio_s = sum(len(a) for a in audios) / SAMPLE_RATE
+        # upload and mel are host spans here (nothing waits for the device):
+        # their device work runs on into the next stage that reads back
+        with _tracker.track("upload", audio_s):
+            devs = [upload_audio(a, self.device) for a in audios]
+        with _tracker.track("vad", audio_s):
             per_chunks = [self._segment_with_vad(d, chunk_size) for d in devs]
 
         langs: List[Optional[str]] = []
@@ -414,7 +418,8 @@ class TranscriptionPipeline:
                     {"start": ch["start"] + bases[r], "end": ch["end"] + bases[r]}
                     for ch in per_chunks[r]
                 )
-            mels = torch.cat([chunk_mels(devs[r], per_chunks[r], n_mels) for r in req_idxs])
+            with _tracker.track("mel", sum(c["end"] - c["start"] for c in pooled)):
+                mels = torch.cat([chunk_mels(devs[r], per_chunks[r], n_mels) for r in req_idxs])
             segments = self._transcribe_chunks(
                 None, pooled, self.asr_options, batch_size=batch_size,
                 language=lg, task=tk, initial_prompt=prompt, mels=mels,

@@ -27,11 +27,13 @@ tensor-parallel decodes, run the same body uncaptured. The self-attention
 cache is reordered in place: each layer's tensor is overwritten with its
 ``index_select`` (two copies of the cache per step). The 2K candidates are chosen with ties broken toward the
 lower index, the order of ``jax.lax.top_k`` (``torch.topk`` promises no
-order among ties).
+order among ties). The decode's parts are timed as the greedy loop's are
+(``decode.encoder``, ``decode.prefill``, ``decode.steps``).
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Sequence, Tuple
 
@@ -56,6 +58,7 @@ from whisperx_tpu_torch.models.whisper.model import (
     encoder_forward,
     new_self_cache,
 )
+from whisperx_tpu_torch.utils.metrics import GLOBAL_TRACKER as _tracker
 
 NEG_INF = float("-inf")
 
@@ -238,31 +241,36 @@ def _beam_decode(
     c = max_candidates or k  # finished-sequence bank slots per batch row
     n_init = initial_tokens.shape[1]
 
+    device = audio_in.device
     if audio_is_features:
         audio_features = audio_in
     else:
-        audio_features = encoder_forward(model.encoder, audio_in, cfg.n_head_audio)
-    cross_k, cross_v = _cross_kv(model, audio_features, cfg)
+        with _tracker.span("decode.encoder", device=device):
+            audio_features = encoder_forward(model.encoder, audio_in, cfg.n_head_audio)
     dec = model.decoder
     cache_len = _cache_len(cfg, n_init)
     shape = ("beam", b, k, c, cache_len, audio_features.shape[1], _step_config(cfg))
-    make = lambda: _BeamBuffers.allocate(dec, cross_k, cross_v, b, k, c, cache_len, cfg)
     init_bk = initial_tokens.repeat_interleave(k, dim=0)  # same prefix everywhere
-    with step_runner((model,), capture, shape, make) as (s, run):
-        s.start(cross_k, cross_v, init_bk, k, cfg.eot)
-        del cross_k, cross_v
-        # the prefill: one eager pass at offset 0
-        logits = decoder_forward(dec, init_bk, s.cache, 0, cfg.n_head, beam_groups=k)
-        probs_at_sot = torch.softmax(logits[::k, cfg.sot_index].float(), dim=-1)
-        no_speech_probs = probs_at_sot[:, cfg.no_speech_token]
-        s.last_logits.copy_(logits[:, -1])  # [B·K, V]
-        del logits
+    with contextlib.ExitStack() as runner:
+        with _tracker.span("decode.prefill", device=device):
+            cross_k, cross_v = _cross_kv(model, audio_features, cfg)
+            make = lambda: _BeamBuffers.allocate(dec, cross_k, cross_v, b, k, c, cache_len, cfg)
+            s, run = runner.enter_context(step_runner((model,), capture, shape, make))
+            s.start(cross_k, cross_v, init_bk, k, cfg.eot)
+            del cross_k, cross_v
+            # the prefill: one eager pass at offset 0
+            logits = decoder_forward(dec, init_bk, s.cache, 0, cfg.n_head, beam_groups=k)
+            probs_at_sot = torch.softmax(logits[::k, cfg.sot_index].float(), dim=-1)
+            no_speech_probs = probs_at_sot[:, cfg.no_speech_token]
+            s.last_logits.copy_(logits[:, -1])  # [B·K, V]
+            del logits
 
         n_sampled = 0
-        # one host read per step: the loop stops once every row's bank is full
-        while n_sampled < cfg.sample_len and not bool((s.bank_count >= c).all()):
-            run(lambda: _beam_step(dec, s, cfg, k, c))
-            n_sampled += 1
+        with _tracker.span("decode.steps", device=device):
+            # one host read per step: the loop stops once every row's bank is full
+            while n_sampled < cfg.sample_len and not bool((s.bank_count >= c).all()):
+                run(lambda: _beam_step(dec, s, cfg, k, c))
+                n_sampled += 1
         out = (
             s.bank_tokens[:, :c].clone(),
             s.bank_lengths[:, :c].clone(),

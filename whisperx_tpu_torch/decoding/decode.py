@@ -27,11 +27,20 @@ on a cache entry of its own; replicas on one device share one decoder and
 its cache. A sampled split reads its rows of the whole batch's draws
 (``_SharedNoise``), copied into its entry's noise buffer before each replay,
 so it samples the unsplit decode's tokens.
+
+Inside the pipeline's ``decode`` stage each decode times its parts as spans
+of ``utils/metrics.py::GLOBAL_TRACKER``, on the device clock too:
+``decode.encoder`` (the encoder pass), ``decode.prefill`` (the cross-KV and
+its int8 quantize, the buffers' start, the eager prefill pass and the
+no-speech probabilities) and ``decode.steps`` (the step loop); then
+``decode.readback`` (``decode_finalize``: the copies back and the text),
+after which the device times are read.
 """
 
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import dataclasses
 import os
 import threading
@@ -52,6 +61,7 @@ from whisperx_tpu_torch.models.whisper.model import (
     precompute_cross_kv,
     quantize_kv,
 )
+from whisperx_tpu_torch.utils.metrics import GLOBAL_TRACKER as _tracker
 from whisperx_tpu_torch.utils.text import compression_ratio
 
 
@@ -295,29 +305,33 @@ def _decode(
     if audio_is_features:
         audio_features = audio_in
     else:
-        audio_features = encoder_forward(model.encoder, audio_in, cfg.n_head_audio)
-    cross_k, cross_v = _cross_kv(model, audio_features, cfg)
+        with _tracker.span("decode.encoder", device=device):
+            audio_features = encoder_forward(model.encoder, audio_in, cfg.n_head_audio)
     dec = model.decoder
     cache_len = _cache_len(cfg, n_init)
     shape = ("sample", b, cache_len, audio_features.shape[1], _step_config(cfg))
-    make = lambda: _SampleBuffers.allocate(dec, cross_k, cross_v, b, cache_len, cfg)
-    with step_runner((model,), capture, shape, make) as (s, run):
-        s.start(cross_k, cross_v, initial_tokens, temperature, cfg.eot)
-        del cross_k, cross_v
-        # the prefill: one eager pass at offset 0
-        logits = decoder_forward(dec, initial_tokens, s.cache, 0, cfg.n_head)
-        probs_at_sot = torch.softmax(logits[:, cfg.sot_index].float(), dim=-1)
-        no_speech_probs = probs_at_sot[:, cfg.no_speech_token]
-        s.last_logits.copy_(logits[:, -1])
-        del logits
+    with contextlib.ExitStack() as runner:
+        with _tracker.span("decode.prefill", device=device):
+            cross_k, cross_v = _cross_kv(model, audio_features, cfg)
+            make = lambda: _SampleBuffers.allocate(dec, cross_k, cross_v, b, cache_len, cfg)
+            s, run = runner.enter_context(step_runner((model,), capture, shape, make))
+            s.start(cross_k, cross_v, initial_tokens, temperature, cfg.eot)
+            del cross_k, cross_v
+            # the prefill: one eager pass at offset 0
+            logits = decoder_forward(dec, initial_tokens, s.cache, 0, cfg.n_head)
+            probs_at_sot = torch.softmax(logits[:, cfg.sot_index].float(), dim=-1)
+            no_speech_probs = probs_at_sot[:, cfg.no_speech_token]
+            s.last_logits.copy_(logits[:, -1])
+            del logits
 
         n_sampled = 0
-        # one host read per step: the loop stops once every row has emitted EOT
-        while n_sampled < cfg.sample_len and not bool(s.finished.all()):
-            if s.noise is not None:
-                s.noise.copy_(noise(n_sampled, tuple(s.noise.shape)))
-            run(lambda: _sample_step(dec, s, cfg))
-            n_sampled += 1
+        with _tracker.span("decode.steps", device=device):
+            # one host read per step: the loop stops once every row has emitted EOT
+            while n_sampled < cfg.sample_len and not bool(s.finished.all()):
+                if s.noise is not None:
+                    s.noise.copy_(noise(n_sampled, tuple(s.noise.shape)))
+                run(lambda: _sample_step(dec, s, cfg))
+                n_sampled += 1
         tokens_buf, sum_logprobs = s.tokens.clone(), s.sum_logprobs.clone()
 
     is_eot = tokens_buf == cfg.eot
@@ -400,8 +414,11 @@ def _split_rows(replicas, tensors: Sequence[torch.Tensor], run, device) -> tuple
         with scope:
             return run(j, rep, *(t[j * per : (j + 1) * per].to(dev) for t in tensors))
 
+    # each thread runs in a copy of the caller's context: its spans are the
+    # caller's span's parts
+    contexts = [contextvars.copy_context() for _ in range(n)]
     with ThreadPoolExecutor(max_workers=n) as pool:
-        outs = list(pool.map(one, range(n)))
+        outs = list(pool.map(lambda j: contexts[j].run(one, j), range(n)))
     return tuple(
         torch.cat([o[i].to(device) for o in outs]) if torch.is_tensor(outs[0][i])
         else max(o[i] for o in outs)
@@ -550,7 +567,7 @@ def decode_dispatch(
     shared_features = None
     if model.is_multilingual and language is None:
         # encode ONCE and share the features between detection and decode
-        with torch.inference_mode():
+        with torch.inference_mode(), _tracker.span("decode.encoder", device=mel.device):
             shared_features = encoder_forward(
                 model.encoder, mel, model.dims.n_audio_head
             )
@@ -737,9 +754,16 @@ def _finalize_beam(handle: dict) -> Union[DecodingResult, List[DecodingResult]]:
 
 
 def decode_finalize(handle: dict) -> Union[DecodingResult, List[DecodingResult]]:
-    """Read a ``decode_dispatch`` handle back into ``DecodingResult``s."""
-    if "beam_device" in handle:
-        return _finalize_beam(handle)
+    """Read a ``decode_dispatch`` handle back into ``DecodingResult``s (the
+    span ``decode.readback``); then the device times of the decode's spans
+    are read, since the copies back followed them."""
+    with _tracker.span("decode.readback"):
+        out = _finalize_beam(handle) if "beam_device" in handle else _finalize_rows(handle)
+        _tracker.settle()
+    return out
+
+
+def _finalize_rows(handle: dict) -> Union[DecodingResult, List[DecodingResult]]:
     tokens_buf, lengths, sum_logprobs, no_speech_probs, audio_features = handle[
         "device"
     ]

@@ -26,10 +26,15 @@ cross-attention kernel (K3) never runs on it, and the token-identity promise
 is against greedy decoding with ``kv_quant=False``.
 
 Both models must share a tokenizer/vocab (e.g. large-v3 + distil-large-v3).
+
+A batch's parts are timed as the greedy decode's are (``decode.encoder``:
+both encoders; ``decode.prefill``: both cross-KVs and prefills;
+``decode.steps``; ``decode.readback``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 from dataclasses import dataclass
@@ -60,6 +65,7 @@ from whisperx_tpu_torch.models.whisper.model import (
     new_self_cache,
     precompute_cross_kv,
 )
+from whisperx_tpu_torch.utils.metrics import GLOBAL_TRACKER
 from whisperx_tpu_torch.utils.text import compression_ratio
 
 # the target decoder's attribute that holds its speculative decodes' graph
@@ -322,45 +328,49 @@ def _spec_batch(target, draft, mels, initial_tokens, cfg, d_cfg, gamma, capture:
     no_speech_prob [B], proposed [B], accepted [B], target passes [B],
     audio features, iterations)."""
     b, n_init = initial_tokens.shape
-    t_feats = encoder_forward(target.encoder, mels, cfg.n_head_audio)
-    t_cross = precompute_cross_kv(target.decoder, t_feats, cfg.n_head)
+    device = mels.device
     shared = shares_cross_kv(target, draft)
-    if shared:
-        # the same encoder and the same first blocks: the same K/V values
-        n_draft = len(draft.decoder.blocks)
-        d_cross = (t_cross[0][:n_draft], t_cross[1][:n_draft])
-    else:
-        d_feats = (
-            t_feats
-            if draft.encoder is target.encoder
-            else encoder_forward(draft.encoder, mels.to(draft.dtype), d_cfg.n_head_audio)
-        )
-        d_cross = precompute_cross_kv(draft.decoder, d_feats, d_cfg.n_head)
+    with GLOBAL_TRACKER.span("decode.encoder", device=device):
+        t_feats = encoder_forward(target.encoder, mels, cfg.n_head_audio)
+        if not shared and draft.encoder is not target.encoder:
+            d_feats = encoder_forward(draft.encoder, mels.to(draft.dtype), d_cfg.n_head_audio)
+        else:
+            d_feats = t_feats
     t_len, d_len = _cache_lens(cfg, d_cfg, n_init, gamma)
     t_dec, d_dec = target.decoder, draft.decoder
     shape = (
         "spec", b, n_init, gamma, t_len, d_len, t_feats.shape[1], cfg.without_timestamps,
         shared, _step_config(cfg), _step_config(d_cfg),
     )
-    make = lambda: _SpecBuffers.allocate(
-        target, draft, t_cross, d_cross, b, t_len, d_len, cfg, d_cfg, gamma, shared
-    )
     cache = graph_cache(t_dec, SPEC_GRAPHS)
-    with step_runner((target, draft), capture, shape, make, cache) as (s, run):
-        s.start(t_cross, d_cross, initial_tokens, cfg)
-        del t_cross, d_cross
-        # the prefills: one eager pass each at offset 0
-        t_logits = decoder_forward(t_dec, initial_tokens, s.t_cache, 0, cfg.n_head)
-        if n_init > 1:
-            decoder_forward(d_dec, initial_tokens[:, :-1], s.d_cache, 0, d_cfg.n_head)
-        no_speech_prob = torch.softmax(t_logits[:, cfg.sot_index].float(), -1)[:, cfg.no_speech_token]
-        del t_logits
+    with contextlib.ExitStack() as runner:
+        with GLOBAL_TRACKER.span("decode.prefill", device=device):
+            t_cross = precompute_cross_kv(target.decoder, t_feats, cfg.n_head)
+            if shared:
+                # the same encoder and the same first blocks: the same K/V values
+                n_draft = len(draft.decoder.blocks)
+                d_cross = (t_cross[0][:n_draft], t_cross[1][:n_draft])
+            else:
+                d_cross = precompute_cross_kv(draft.decoder, d_feats, d_cfg.n_head)
+            make = lambda: _SpecBuffers.allocate(
+                target, draft, t_cross, d_cross, b, t_len, d_len, cfg, d_cfg, gamma, shared
+            )
+            s, run = runner.enter_context(step_runner((target, draft), capture, shape, make, cache))
+            s.start(t_cross, d_cross, initial_tokens, cfg)
+            del t_cross, d_cross
+            # the prefills: one eager pass each at offset 0
+            t_logits = decoder_forward(t_dec, initial_tokens, s.t_cache, 0, cfg.n_head)
+            if n_init > 1:
+                decoder_forward(d_dec, initial_tokens[:, :-1], s.d_cache, 0, d_cfg.n_head)
+            no_speech_prob = torch.softmax(t_logits[:, cfg.sot_index].float(), -1)[:, cfg.no_speech_token]
+            del t_logits
 
         iterations = 0
-        # one host read per iteration: the loop stops once no row is active
-        while bool(s.active.any()):
-            run(lambda: _spec_step(t_dec, d_dec, s, cfg, d_cfg, gamma, n_init))
-            iterations += 1
+        with GLOBAL_TRACKER.span("decode.steps", device=device):
+            # one host read per iteration: the loop stops once no row is active
+            while bool(s.active.any()):
+                run(lambda: _spec_step(t_dec, d_dec, s, cfg, d_cfg, gamma, n_init))
+                iterations += 1
         out = tuple(t.clone() for t in (s.buf, s.n, s.sum_lp))
         counts = tuple(t.clone() for t in (s.proposed, s.accepted, s.passes))
     return (*out, no_speech_prob, *counts, t_feats, iterations)
@@ -546,10 +556,15 @@ class SpeculativeDecoder:
 
     def decode_batch_finalize(self, handle: dict) -> list:
         """Read a ``decode_batch_dispatch`` handle back into per-row
-        ``DecodingResult``s; adds the real rows' acceptance counts to
-        ``self.stats`` and the global metrics tracker."""
-        from whisperx_tpu_torch.utils.metrics import GLOBAL_TRACKER
+        ``DecodingResult``s (the span ``decode.readback``, after which the
+        decode's device times are read); adds the real rows' acceptance
+        counts to ``self.stats`` and the global metrics tracker."""
+        with GLOBAL_TRACKER.span("decode.readback"):
+            results = self._finalize(handle)
+            GLOBAL_TRACKER.settle()
+        return results
 
+    def _finalize(self, handle: dict) -> list:
         buf, n, sum_lp, nsp, prop, acc, tp = (t.cpu().numpy() for t in handle["device"])
         tokenizer = handle["tokenizer"]
         cfg = handle["cfg"]

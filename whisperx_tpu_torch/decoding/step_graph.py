@@ -43,6 +43,12 @@ Kernel launches are counted as on the eager path: during a capture the
 wrappers' counts go to the entry's record (``ops.recording_launches``),
 and each replay adds the record once (``ops.add_launches``).
 
+The tracker (``utils/metrics.py::GLOBAL_TRACKER``) counts each decode's
+steps run through the runner (``step_replays``: the replays on the card,
+every step on the CPU and in an uncaptured decode) and their device time
+(``StepClock``), and the cache's ``graph_warmups``, ``graph_captures`` and
+``graph_evictions``.
+
 A failed capture or replay raises; there is no eager fallback on the card.
 """
 
@@ -57,6 +63,7 @@ import torch
 
 from whisperx_tpu_torch.ops import add_launches, recording_launches
 from whisperx_tpu_torch.ops.cross_attention_decode import use_cross_decode_kernel
+from whisperx_tpu_torch.utils.metrics import GLOBAL_TRACKER, device_mark, mark_elapsed_s
 from whisperx_tpu_torch.utils.precision import reference_matmul
 
 MAX_ENTRIES = 4
@@ -85,9 +92,62 @@ def tensor_bytes(x) -> int:
     return sum(t.numel() * t.element_size() for t in {id(t): t for t in _leaves(x)}.values())
 
 
+class StepClock:
+    """The device time of one decode's steps: a ``device_mark`` pair around
+    each, from a pool of events kept for the next decode (on the card,
+    made by the first decode that needs them), or the host clock on the
+    CPU. ``commit`` adds ``step_replays`` to the tracker and, once the
+    events can be read, ``step_replay_device_s`` (the pairs' sum) and
+    ``step_loop_device_s`` (the first step's start to the last's end)."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self._marks: list = []
+        self._unread = [False]  # whether the tracker still holds the marks
+        self._stream = None  # the decode's stream, looked up once a decode
+        self.n = 0
+
+    def begin(self) -> None:
+        if self._unread[0]:  # the last decode's events are not read yet
+            self._marks, self._unread = [], [False]
+        self.n = 0
+        if self.device.type == "cuda":
+            self._stream = torch.cuda.current_stream(self.device)
+
+    def time(self, fn: Callable[[], None]) -> None:
+        """Run ``fn`` between two marks."""
+        i = 2 * self.n
+        if i + 2 > len(self._marks):
+            self._marks.extend([None, None])
+        m = self._marks
+        m[i] = device_mark(self.device, m[i], self._stream)
+        fn()
+        m[i + 1] = device_mark(self.device, m[i + 1], self._stream)
+        self.n += 1
+
+    def commit(self) -> None:
+        n, marks, unread = self.n, self._marks, self._unread
+        GLOBAL_TRACKER.add("step_replays", n)
+        if not n:
+            return
+        unread[0] = True
+
+        def read():
+            unread[0] = False
+            return {
+                "step_replay_device_s": sum(mark_elapsed_s(marks[2 * i], marks[2 * i + 1]) for i in range(n)),
+                "step_loop_device_s": mark_elapsed_s(marks[0], marks[2 * n - 1]),
+            }
+
+        GLOBAL_TRACKER.add_later(marks[2 * n - 1], read)
+
+
 class StepGraph:
     """One cache entry: a decode's static ``buffers`` and the graph of its
-    step. ``launches`` is what one replay launches, ``(fn, attr) → n``."""
+    step. ``launches`` is what one replay launches, ``(fn, attr) → n``;
+    ``pool_bytes`` what its capture added to the reserved device memory:
+    the graph's private pool (and whatever another thread allocated
+    meanwhile)."""
 
     def __init__(self, key, buffers, stream: Optional["torch.cuda.Stream"] = None):
         self.key = key
@@ -98,6 +158,8 @@ class StepGraph:
         self.warmed = False
         self.done = None  # event after the last decode's work on the buffers
         self.nbytes = tensor_bytes(buffers)
+        self.pool_bytes = 0
+        self.clock = StepClock(stream.device if stream is not None else torch.device("cpu"))
         self.captures = self.replays = 0  # since checkout
 
     def step(self, body: Callable[[], None]) -> None:
@@ -115,7 +177,7 @@ class StepGraph:
                         self._warm_up(body)
                         return
                     self._capture(body)
-            self.graph.replay()
+            self.clock.time(self.graph.replay)
         add_launches(self.launches)
         self.replays += 1
 
@@ -126,15 +188,20 @@ class StepGraph:
             body()
         current.wait_stream(self.stream)
         self.warmed = True
+        GLOBAL_TRACKER.add("graph_warmups")
 
     def _capture(self, body) -> None:
         graph = torch.cuda.CUDAGraph()
         self.stream.wait_stream(torch.cuda.current_stream())
         with recording_launches() as record, reference_matmul():
             with torch.cuda.graph(graph, stream=self.stream, capture_error_mode="thread_local"):
+                # read after the capture's start has emptied the allocator's cache
+                reserved = torch.cuda.memory_reserved(self.stream.device)
                 body()
+        self.pool_bytes = torch.cuda.memory_reserved(self.stream.device) - reserved
         self.graph, self.launches = graph, record
         self.captures += 1
+        GLOBAL_TRACKER.add("graph_captures")
 
 
 class GraphCache:
@@ -160,6 +227,7 @@ class GraphCache:
         entry = None
         with self._lock:
             if weights != self._weights:
+                _evicted(len(self._idle))
                 self._idle.clear()
                 self._weights = weights
             for i, e in enumerate(self._idle):
@@ -183,20 +251,28 @@ class GraphCache:
             self.captures += entry.captures
             self.replays += entry.replays
             if weights != self._weights:
+                _evicted(1)
                 return  # captured on weights that are gone
             self._idle.insert(0, entry)
+            _evicted(len(self._idle[self.max_entries:]))
             del self._idle[self.max_entries:]
 
     def stats(self) -> dict:
-        """Captures and replays of the checked-in decodes, the idle entries
-        and their static buffers' bytes."""
+        """Captures and replays of the checked-in decodes, the idle entries,
+        their static buffers' bytes and their graphs' pools' bytes."""
         with self._lock:
             return {
                 "captures": self.captures,
                 "replays": self.replays,
                 "entries": len(self._idle),
                 "static_bytes": sum(e.nbytes for e in self._idle),
+                "pool_bytes": sum(e.pool_bytes for e in self._idle),
             }
+
+
+def _evicted(n: int) -> None:
+    if n:
+        GLOBAL_TRACKER.add("graph_evictions", n)
 
 
 def graph_cache(dec, attr: str = "_step_graphs") -> GraphCache:
@@ -252,17 +328,23 @@ def step_runner(
     it is (the CPU, tensor-parallel decodes, the yardstick). The entry goes
     back to the cache only after a decode that raised nothing."""
     if not (capture and all(graphable(m) for m in models)):
+        clock = StepClock(models[0].decoder.tok_emb.device)
+        clock.begin()
+
         def run(body):
             with reference_matmul():
-                body()
+                clock.time(body)
 
         yield make(), run
+        clock.commit()
         return
     dec = models[0].decoder
     cache = graph_cache(dec) if cache is None else cache
     weights = weights_fingerprint(*(m.decoder for m in models))
     entry = cache.checkout(weights, graph_key(dec, shape), make, dec.tok_emb.device)
+    entry.clock.begin()
     yield entry.buffers, entry.step
+    entry.clock.commit()
     cache.checkin(weights, entry)
 
 

@@ -9,7 +9,9 @@ The flags of ``python -m whisperx_tpu.serve``, with ``--device`` defaulting
 to ``cuda`` (``cpu`` for smoke tests). ``--data_parallel on`` (or ``auto``
 on CUDA with more than one GPU visible) serves through
 ``parallel.DataParallelPipeline`` over the devices of ``--device``, each
-data row's replica split ``--n_model`` ways.
+data row's replica split ``--n_model`` ways. One flag is the port's own:
+``--trace_spans PATH`` writes the tracker's span records
+(``utils/metrics.py``) as a Chrome trace when the server exits.
 """
 
 import argparse
@@ -46,12 +48,17 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--spec_gamma", type=int, default=4, help="speculative draft length per verify step")
     parser.add_argument("--data_parallel", type=str, default="auto", choices=["auto", "on", "off"], help="shard decode batches over all local devices (auto: when >1 device)")
     parser.add_argument("--n_model", type=int, default=1, help="tensor-parallel width within the device mesh")
+    parser.add_argument("--trace_spans", type=str, default=None, help="keep a record of every span of the pipeline and the batcher (stages, the decode's parts, each request's waits) and write them to this path as one Chrome trace JSON when the server exits, on the clock of torch.profiler's traces")
     # fmt: on
     return parser
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    if args.trace_spans:
+        from whisperx_tpu_torch.utils.metrics import GLOBAL_TRACKER
+
+        GLOBAL_TRACKER.record_spans()
 
     from whisperx_tpu_torch.asr import load_model
     from whisperx_tpu_torch.serve.batching import BatchConfig
@@ -135,6 +142,10 @@ def main(argv=None):
         server.serve_forever(args.host, args.port)
     except KeyboardInterrupt:
         server.shutdown()
+    finally:
+        if args.trace_spans:
+            n = GLOBAL_TRACKER.write_spans(args.trace_spans)
+            print(f"{n} spans written to {args.trace_spans}", flush=True)
 
 
 if __name__ == "__main__":

@@ -14,6 +14,15 @@ batch size only caps how many REQUESTS coalesce — device shapes come
 from the pipeline's own batch size. The anchored straggler window in
 ``RequestQueue.get_batch`` subsumes it: batch fill adapts to arrival
 rate with a hard per-request latency bound.
+
+A request's wait before its ``transcribe_many`` call (``stats``'
+``total_wait_s``) is two waits, each a span of the tracker
+(``utils/metrics.py::GLOBAL_TRACKER``) and a key of ``stats``:
+``serve.drain_wait`` / ``drain_wait_s``, from its submission until the
+worker's drain takes it, and ``serve.bucket_wait`` / ``bucket_wait_s``,
+from then until its duration bucket's call starts, behind the drain's
+earlier buckets. ``serve.call`` is the call. The three carry the request's
+and the call's ids in the tracker's records.
 """
 
 from __future__ import annotations
@@ -28,6 +37,7 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 
 from whisperx_tpu_torch.audio.constants import SAMPLE_RATE
+from whisperx_tpu_torch.utils.metrics import GLOBAL_TRACKER
 
 
 @dataclass(order=True)
@@ -178,8 +188,11 @@ class ContinuousBatcher:
             "total_audio_s": 0.0,
             "total_wall_s": 0.0,
             "total_wait_s": 0.0,
+            "drain_wait_s": 0.0,
+            "bucket_wait_s": 0.0,
         }
         self._seq = itertools.count()
+        self._calls = itertools.count()
         self._stop = threading.Event()
         self._worker: Optional[threading.Thread] = None
 
@@ -286,34 +299,40 @@ class ContinuousBatcher:
             self.config.max_batch_size, self.config.max_wait_ms / 1000.0,
             initial_wait_s=initial_wait_s,
         )
+        drained = time.monotonic()
         batch = [r for r in batch if r.request_id != "__stop__"]
         if not batch:
             return False
+        # the tracker's records are on perf_counter's clock, these times on
+        # monotonic's
+        shift = time.perf_counter() - time.monotonic()
         buckets = bucket_requests(batch, self.config.bucket_boundaries)
         for reqs in buckets.values():
+            call = next(self._calls)
             t0 = time.monotonic()
             try:
                 # NOTE: the DEVICE decode batch size is the pipeline's own
                 # batch_size; max_batch_size only caps how many REQUESTS
                 # coalesce per serving batch — don't conflate them here.
-                if hasattr(self.pipeline, "transcribe_many"):
-                    # cross-request coalescing: one pooled chunk stream
-                    # fills shared device batches, results demuxed per
-                    # request; per-request language/task ride along
-                    results = self.pipeline.transcribe_many(
-                        [r.audio for r in reqs],
-                        language=[r.language for r in reqs],
-                        task=[r.task for r in reqs],
-                        initial_prompt=[r.initial_prompt for r in reqs],
-                    )
-                else:
-                    results = [
-                        self.pipeline.transcribe(
-                            r.audio, language=r.language, task=r.task,
-                            initial_prompt=r.initial_prompt,
+                with GLOBAL_TRACKER.ids(call=call):
+                    if hasattr(self.pipeline, "transcribe_many"):
+                        # cross-request coalescing: one pooled chunk stream
+                        # fills shared device batches, results demuxed per
+                        # request; per-request language/task ride along
+                        results = self.pipeline.transcribe_many(
+                            [r.audio for r in reqs],
+                            language=[r.language for r in reqs],
+                            task=[r.task for r in reqs],
+                            initial_prompt=[r.initial_prompt for r in reqs],
                         )
-                        for r in reqs
-                    ]
+                    else:
+                        results = [
+                            self.pipeline.transcribe(
+                                r.audio, language=r.language, task=r.task,
+                                initial_prompt=r.initial_prompt,
+                            )
+                            for r in reqs
+                        ]
             except Exception as e:
                 # fail the batch's requests, never the worker thread: a bad
                 # request (or transient decode error) must not hang every
@@ -325,7 +344,8 @@ class ContinuousBatcher:
                 with self._stats_lock:
                     self.stats["errors"] += len(reqs)
                 continue
-            wait_s = audio_s = 0.0
+            t1 = time.monotonic()
+            wait_s = drain_s = bucket_s = audio_s = 0.0
             for req, result in zip(reqs, results):
                 req.result = result
                 req.done.set()
@@ -333,12 +353,21 @@ class ContinuousBatcher:
                     req.callback(result)
                 audio_s += len(req.audio) / SAMPLE_RATE
                 wait_s += t0 - req.submitted_at
+                drain_s += drained - req.submitted_at
+                bucket_s += t0 - drained
+                ids = {"request": req.request_id or req.seq, "call": call}
+                GLOBAL_TRACKER.observe("serve.drain_wait", drained - req.submitted_at,
+                                       start=req.submitted_at + shift, **ids)
+                GLOBAL_TRACKER.observe("serve.bucket_wait", t0 - drained, start=drained + shift, **ids)
+                GLOBAL_TRACKER.observe("serve.call", t1 - t0, start=t0 + shift, **ids)
             # += is a read-modify-write: concurrent workerless drainers
             # would lose updates without the lock
             with self._stats_lock:
                 self.stats["requests"] += len(reqs)
                 self.stats["total_audio_s"] += audio_s
                 self.stats["total_wait_s"] += wait_s
+                self.stats["drain_wait_s"] += drain_s
+                self.stats["bucket_wait_s"] += bucket_s
                 self.stats["batches"] += 1
                 self.stats["total_wall_s"] += time.monotonic() - t0
         return True
@@ -349,6 +378,9 @@ class ContinuousBatcher:
 
     @property
     def throughput_rtf(self) -> float:
+        """Seconds of audio served per second the worker spent in its calls
+        (``total_wall_s``, the busy time alone): not a rate over time,
+        which also counts the time the worker waited for requests."""
         snap = self.stats_snapshot()
         w = snap["total_wall_s"]
         return snap["total_audio_s"] / w if w > 0 else 0.0

@@ -87,6 +87,11 @@ def transcribe_task(args: dict, parser: argparse.ArgumentParser):
     verbose = take("verbose")
     word_timestamps = take("word_timestamps")
     log_json = take("log_json", None)
+    trace_spans = take("trace_spans", None)
+    if trace_spans:
+        from whisperx_tpu_torch.utils.metrics import GLOBAL_TRACKER
+
+        GLOBAL_TRACKER.record_spans()
 
     os.makedirs(output_dir, exist_ok=True)
 
@@ -256,4 +261,7 @@ def transcribe_task(args: dict, parser: argparse.ArgumentParser):
 
         GLOBAL_TRACKER.emit_jsonl(log_json, extra={"files": len(results)})
         print(f">>Metrics written to {log_json}")
+    if trace_spans:
+        n = GLOBAL_TRACKER.write_spans(trace_spans)
+        print(f">>{n} spans written to {trace_spans}")
     return model
