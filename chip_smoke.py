@@ -14,8 +14,12 @@ Phases, each of which passes or raises (the script then exits non-zero):
      never used by the port), and the bound for the same work: K1, K1b and
      K2 (``flash_attention.cu``), K4 (``quant_matmul.cu``, at every shape
      of the int8 CLI path), K3, K3kt and K3i8
-     (``cross_attention_decode.cu``, at the decode step of batch 8 and of
-     batch 1, both timed, and at three other shapes); every case of every
+     (``cross_attention_decode.cu``, at the decode step of batch 16, the
+     benchmark's, of batch 8 and of batch 1, all timed, and at three other
+     shapes), then the decoder's default route at batch 16 (a bf16 query
+     over the int8 cache: K3): its op against the plain version, with the
+     f32-query control outside, and the route against the widened einsum,
+     both timed; every case of every
      kernel is called twice and must give the same bits; K1's f32 route
      (error-compensated TF32 on the tensor cores) is timed at
      [160, 1500, 64] against its floor (3 x its f32 work at the TF32 rate)
@@ -35,10 +39,9 @@ Phases, each of which passes or raises (the script then exits non-zero):
      runs each, then once each for 24 steps under ``torch.profiler``
      (device busy share, kernels by device time); the two must give the
      same bits and launch counts, and the profiled kernels must be found
-     inside the replays; then the same with the cross-decode opt-in
-     (``WHISPERX_TPU_CROSS_DECODE=1``): K3 must launch once per decoder
-     layer per sampled step, and one step's logits must agree with the
-     einsum route's;
+     inside the replays; the bf16 greedy steps take K3 by default, which
+     must launch once per decoder layer per sampled step, and one step's
+     logits must agree with the einsum route's (``einsum_route``);
   5d. eviction gate (after 5's greedy profile, on its model): a bf16
      greedy and a beam-5 decode of the profile's batch captured; the
      cache of ``filters._id_mask`` cleared where it has one, the garbage
@@ -47,7 +50,7 @@ Phases, each of which passes or raises (the script then exits non-zero):
      decodes again, every step a replay, must give the uncaptured decode's
      bits: a replay reads nothing its entry does not own;
   5b. ``transcribe_many`` of three requests through the main path's
-     pipeline with the opt-in: one result per request, segments inside
+     pipeline: one result per request, segments inside
      their own audio, K3 launched n_text_layer × the sampled steps, K1
      32 × the encoder passes;
   4b. word timing: the main path's pipeline with ``word_timestamps=True``
@@ -87,8 +90,9 @@ Phases, each of which passes or raises (the script then exits non-zero):
   6c. float32 (after 6b): ``load_model("large-v3",
      compute_type="float32", vad_method="energy", batch_size=8)
      .transcribe`` of 60 s of the main path's speech: every K1 launch on
-     its f32 route, 32 per encoder pass; phase 5's greedy profile in f32,
-     captured against uncaptured; wall, ms per step, peak memory;
+     its f32 route, 32 per encoder pass, and no K3 launch (an f32 query
+     keeps the einsum); phase 5's greedy profile in f32, captured against
+     uncaptured, with no K3 launch; wall, ms per step, peak memory;
   8. speculative decoding (after 5b, on the main path's model and 120 s):
      ``transcribe(..., draft_model="self:4", spec_gamma=4)`` at one
      temperature, each iteration a replay of a captured CUDA graph, three
@@ -410,18 +414,20 @@ def kernel_entry(name, source, replaces, err, ms, plain_ms, bytes_moved, ops, pe
     }
 
 
-class cross_decode_opt_in:
-    """``WHISPERX_TPU_CROSS_DECODE=1`` inside the block, as before after."""
+class einsum_route:
+    """Inside: the decoder's cross-attention takes the einsum over the cache
+    widened to f32 on every pass (the route of f32 models and of beams),
+    through a shim around the model module's ``cross_decode_route``: the
+    yardstick of one bf16 step's logits, never a path of the package."""
 
     def __enter__(self):
-        self.saved = os.environ.get(CROSS_DECODE_FLAG)
-        os.environ[CROSS_DECODE_FLAG] = "1"
+        from whisperx_tpu_torch.models.whisper import model as tm
+
+        self.tm, self.real = tm, tm.cross_decode_route
+        tm.cross_decode_route = lambda *args: False
 
     def __exit__(self, *exc):
-        if self.saved is None:
-            os.environ.pop(CROSS_DECODE_FLAG, None)
-        else:
-            os.environ[CROSS_DECODE_FLAG] = self.saved
+        self.tm.cross_decode_route = self.real
 
 
 class k4_by_shape:
@@ -758,13 +764,14 @@ def cross_decode_case(b, t, h, dh, seed=0):
     return qs, k8, v8, qs8, sq, q32
 
 
-# K3's shapes: (B, T, H, Dh). The large-v3 decode step at the pipeline's
-# batch of 8 and at B 1 (timed); a tile that overhangs; test-nano's head
-# size; past 8 tiles (blocks walk two whole tiles) with T % 4 != 0 (K3kt's
-# rows then start at any byte)
-K3_SHAPES = ((8, 1500, 20, 64), (1, 1500, 20, 64), (1, 300, 20, 64), (2, 1500, 2, 32),
-             (1, 4999, 4, 64))
-K3_TIMED = ((8, 1500), (1, 1500))
+# K3's shapes: (B, T, H, Dh). The large-v3 decode step at the benchmark's
+# batch of 16, at the pipeline's of 8 and at B 1 (timed); a tile that
+# overhangs; test-nano's head size; past 8 tiles (blocks walk two whole
+# tiles) with T % 4 != 0 (K3kt's rows then start at any byte)
+K3_SHAPES = ((16, 1500, 20, 64), (8, 1500, 20, 64), (1, 1500, 20, 64), (1, 300, 20, 64),
+             (2, 1500, 2, 32), (1, 4999, 4, 64))
+K3_TIMED = ((16, 1500), (8, 1500), (1, 1500))
+K3_ENTRY_B = 16  # the kernels line's K3 family entries: the benchmark's batch
 
 
 def phase_k3():
@@ -778,8 +785,8 @@ def phase_k3():
     same bits. Timed at K3_TIMED with enough copies of K/V cycled to pass
     the 50 MB L2 (a decode step reads 32 layers' K/V, each once).
     Yardstick: one ``scaled_dot_product_attention`` on K/V widened to bf16
-    beforehand. Returns the kernels-line entries (B 8) and one record per
-    timed shape. Uses only functions that every version of the port has,
+    beforehand. Returns the kernels-line entries (B K3_ENTRY_B) and one
+    record per timed shape. Uses only functions that every version of the port has,
     so a copy of this script times an older commit's kernel the same way."""
     import torch
     import torch.nn.functional as F
@@ -886,12 +893,89 @@ def phase_k3():
             shapes.append({"name": name, "b": b, "t": t, "h": h, "dh": dh, "ms": ms,
                            "plain_ms": plain_ms, "bound_ms": e["bound_ms"],
                            "library_ms": library_ms, "max_abs_err": err})
-            if b == 8:
+            if b == K3_ENTRY_B:
                 entries.append(e)
             del sets, widened
         del case
     torch.cuda.empty_cache()
     return entries, shapes
+
+
+def phase_k3_route() -> None:
+    """The decoder's default route at the benchmark's step, B 16, T 1500,
+    H 20, Dh 64 (the first of K3_SHAPES). (a) Its op,
+    ``cross_attention_decode`` on the packed [B, 1, H, Dh] query (the
+    layout the decoder hands it, unlike phase_k3's spread queries), against
+    K3's plain version within the family's 1e-2 (|out| ≲ 120), the same
+    bits twice; the control as in phase_k3: the plain version on the
+    unrounded f32 query must fall outside. (b) ``_cross_attention`` of a
+    bf16 query over a ``QuantizedKV`` of N(0, 1) bf16 K/V with
+    ``cross_decode_route``'s answer (K3, one launch), against the widened
+    einsum (``use_kernel=False``, the route of f32 queries): within 1e-2
+    of the einsum's largest |output| (they differ where P is rounded to
+    bf16 and in the output's bf16 rounding). (c) Both routes timed, K/V
+    cycled past the L2: one layer's cross-attention of a step. Skipped on a
+    port without ``cross_decode_route``."""
+    import torch
+
+    from whisperx_tpu_torch.models.whisper import model as tm
+    from whisperx_tpu_torch.ops import cross_attention_decode as cad
+
+    route = getattr(cad, "cross_decode_route", None)
+    if route is None:
+        print("[kernels] K3 route: no cross_decode_route in this version; skipped")
+        return
+    tol = 1e-2
+    b, t, h, dh = K3_SHAPES[0]
+    d = h * dh
+    _, k8, v8, _, _, q32 = cross_decode_case(b, t, h, dh, seed=t + b + 1)
+    q_eff = q32.to(torch.bfloat16).reshape(b, 1, h, dh)
+    k4, v4 = k8.reshape(b, t, h, dh), v8.reshape(b, t, h, dh)
+    out = cad.cross_attention_decode(q_eff, k4, v4)
+    same_bits(f"K3 op B={b} T={t}", out, cad.cross_attention_decode(q_eff, k4, v4))
+    ref = cad._cross_decode_reference(cad.spread_queries(q_eff.reshape(b, d), h), k8, v8)
+    err = (out.reshape(b, 1, d) - ref).abs().max().item()
+    control = cad._cross_decode_reference(cad.spread_queries(q32, h), k8, v8)
+    c_err = (out.reshape(b, 1, d) - control).abs().max().item()
+    ok = math.isfinite(err) and err <= tol < c_err
+    print(
+        f"[kernels] K3 op (packed query) B={b} T={t} H={h} Dh={dh}: max_abs_err {err:.3e} (tol {tol:g}, "
+        f"|ref| max {ref.abs().max().item():.3f}); control (plain version on the f32 query) {c_err:.3e} "
+        f"must exceed tol {'ok' if ok else 'FAIL'}"
+    )
+    if not ok:
+        raise AssertionError(f"K3 op: max_abs_err {err}, control {c_err}, tol {tol}")
+    del ref, control
+
+    g = torch.Generator(device="cuda").manual_seed(b + t)
+    sets = [
+        tuple(tm.quantize_kv(torch.randn((b, t, h, dh), generator=g, device="cuda").to(torch.bfloat16))
+              for _ in range(2))
+        for _ in range(max(2, math.ceil(2 * L2_BYTES / (2 * b * t * d))))
+    ]
+    cq = torch.randn((b, 1, h, dh), generator=g, device="cuda").to(torch.bfloat16)
+    use = route(cq.device, cq.dtype, dh, True, 1)
+    assert use is True, use
+    launches = cad.cross_attention_decode.launches
+    got = tm._cross_attention(cq, *sets[0], use)
+    assert cad.cross_attention_decode.launches == launches + 1
+    einsum = tm._cross_attention(cq, *sets[0], False)
+    gap = (got.float() - einsum.float()).abs().max().item()
+    mag = einsum.float().abs().max().item()
+    ok = got.dtype == torch.bfloat16 and math.isfinite(gap) and gap <= tol * mag
+    cycle = itertools.cycle(sets)
+    route_ms = cuda_ms(lambda: tm._cross_attention(cq, *next(cycle), use))
+    einsum_ms = cuda_ms(lambda: tm._cross_attention(cq, *next(cycle), False), iters=10)
+    print(
+        f"[kernels] K3 route B={b} T={t} H={h} Dh={dh}: the default route (K3) against the widened einsum: "
+        f"max_abs_gap {gap:.3e}, {gap / mag:.2%} of |einsum| max {mag:.4f} (within {tol:g} of it) "
+        f"{'ok' if ok else 'FAIL'}; one layer's cross-attention {route_ms:.4f} ms (K3 route) against "
+        f"{einsum_ms:.4f} ms (einsum route), {len(sets)} K/V sets cycled"
+    )
+    if not ok:
+        raise AssertionError(f"K3 route against the einsum: {gap} > {tol} x {mag}")
+    del sets
+    torch.cuda.empty_cache()
 
 
 def quant_case(m, k, n, dtype, group_size=64, seed=0):
@@ -1402,9 +1486,10 @@ def phase_decode_profile(model, tag: str = "profile", beam_size=None, k3=None) -
     single-card decode takes) and uncaptured (``_eager``, the yardstick),
     timed in turns; every run's tokens, lengths and scores must equal the
     first captured run's bits and every kernel's launches must be equal.
-    ``k3``: under the cross-decode opt-in, the K3 kernel entry; every run
-    must launch it once per decoder layer per sampled step, and its device
-    time is printed. The kernels named in each profile (K3, K4) must be
+    ``k3``: the K3 kernel entry, for a decode whose steps take K3 (bf16
+    greedy over the int8 cache, the default route); every run must launch
+    it once per decoder layer per sampled step, and its device time is
+    printed; without it (beams, f32) no run may launch K3. The kernels named in each profile (K3, K4) must be
     found in the captured decode's trace, inside its replays. Returns the
     median ms per step of each mode and the launches of a 48-step decode."""
     import dataclasses
@@ -1596,9 +1681,9 @@ def phase_eviction_gate(model) -> None:
 
 
 def phase_cross_decode_step(model) -> None:
-    """One decode step's logits through K3 (the opt-in) against the einsum
-    route, on the profile's batch: the same prefill, then one t_new = 1
-    pass each way. The routes differ in where P is rounded to bf16 (each
+    """One decode step's logits through K3 (the default route of a bf16
+    step) against the einsum route (``einsum_route``), on the profile's
+    batch: the same prefill, then one t_new = 1 pass each way. The routes differ in where P is rounded to bf16 (each
     512-key tile's running max against the full row's max) and in the
     kernel's query rounding to bf16 (the model is bf16 already); both then
     go through 32 bf16 layers. Tolerance: STEP_LOGIT_TOL."""
@@ -1630,12 +1715,14 @@ def phase_cross_decode_step(model) -> None:
         prefix = torch.tensor([[50258, 50259, 50360]] * PROFILE_BATCH, device="cuda")
         decoder_forward(model.decoder, prefix, cache, 0, dims.n_text_head)
         step = torch.full((PROFILE_BATCH, 1), 50365, device="cuda")
-        einsum = decoder_forward(model.decoder, step, cache, 3, dims.n_text_head)
-        with cross_decode_opt_in():
-            cross_attention_decode.launches = 0
-            kernel = decoder_forward(model.decoder, step, cache, 3, dims.n_text_head)
-            torch.cuda.synchronize()
-            assert cross_attention_decode.launches == dims.n_text_layer
+        cross_attention_decode.launches = 0
+        with einsum_route():
+            einsum = decoder_forward(model.decoder, step, cache, 3, dims.n_text_head)
+        torch.cuda.synchronize()
+        assert cross_attention_decode.launches == 0
+        kernel = decoder_forward(model.decoder, step, cache, 3, dims.n_text_head)
+        torch.cuda.synchronize()
+        assert cross_attention_decode.launches == dims.n_text_layer
     err = (kernel - einsum).abs().max().item()
     same = (kernel.argmax(-1) == einsum.argmax(-1)).float().mean().item()
     spread = einsum.std().item()
@@ -1652,8 +1739,8 @@ def phase_cross_decode_step(model) -> None:
 def phase_transcribe_many(pipe, k3: dict) -> None:
     """``transcribe_many`` of three requests of synthetic speech (lengths
     MANY_AUDIO_S, seeds 3-5, the second's language detected) through the
-    main path's large-v3 pipeline, with the cross-decode opt-in and the
-    ladder SHORT_LADDER. The counts are reset just before and read just
+    main path's large-v3 pipeline (bf16, whose greedy steps take K3), with
+    the ladder SHORT_LADDER. The counts are reset just before and read just
     after: K3 once per decoder layer per sampled step (the prefills, with
     t_new > 1, stay on the einsum), K1 32 × the encoder passes (the decodes
     and the one batched language detection)."""
@@ -1668,14 +1755,13 @@ def phase_transcribe_many(pipe, k3: dict) -> None:
     pipe.asr_options = {**saved, "temperatures": SHORT_LADDER}
     GLOBAL_TRACKER.reset()
     try:
-        with cross_decode_opt_in():
-            cross_attention_decode.launches = 0
-            flash_attention.launches = 0
-            t0 = time.perf_counter()
-            results = pipe.transcribe_many(audios, batch_size=8, language=["en", None, "en"])
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            k3_launches, k1_launches = cross_attention_decode.launches, flash_attention.launches
+        cross_attention_decode.launches = 0
+        flash_attention.launches = 0
+        t0 = time.perf_counter()
+        results = pipe.transcribe_many(audios, batch_size=8, language=["en", None, "en"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k3_launches, k1_launches = cross_attention_decode.launches, flash_attention.launches
     finally:
         pipe.asr_options = saved
     report = GLOBAL_TRACKER.report()
@@ -2037,13 +2123,15 @@ def phase_float32() -> None:
     speech (seed 1) at the default temperatures: (a) every K1 launch is on
     its f32 route (the wrapper's inputs are f32: a shim around
     ``wholek_attention`` records their dtype) and there are 32 per encoder
-    pass; (b) the decode profile of phase 5 for the f32 model, greedy,
-    captured against uncaptured: the same bits and launches; (c) wall, ms
-    per step and peak memory printed."""
+    pass, and K3 never launches (an f32 query keeps the einsum); (b) the
+    decode profile of phase 5 for the f32 model, greedy, captured against
+    uncaptured: the same bits and launches, K3 none; (c) wall, ms per step
+    and peak memory printed."""
     import torch
 
     import whisperx_tpu_torch
     from whisperx_tpu_torch.ops import flash_attention as fa
+    from whisperx_tpu_torch.ops.cross_attention_decode import cross_attention_decode
     from whisperx_tpu_torch.utils.metrics import GLOBAL_TRACKER
 
     t0 = time.perf_counter()
@@ -2061,6 +2149,7 @@ def phase_float32() -> None:
     GLOBAL_TRACKER.reset()
     torch.cuda.reset_peak_memory_stats()
     fa.flash_attention.launches = 0
+    cross_attention_decode.launches = 0
     fa.wholek_attention = recorded
     t0 = time.perf_counter()
     try:
@@ -2074,13 +2163,16 @@ def phase_float32() -> None:
     passes, launches = report["decode"]["calls"], fa.flash_attention.launches
     assert launches == pipe.model.dims.n_audio_layer * passes > 0, (launches, passes)
     assert len(dtypes) == launches and set(dtypes) == {torch.float32}, (len(dtypes), set(dtypes))
+    # an f32 query keeps the einsum: K3 would round it to bf16
+    assert cross_attention_decode.launches == 0, cross_attention_decode.launches
     for seg in result["segments"]:
         assert 0.0 <= seg["start"] < seg["end"] <= F32_AUDIO_S + 1e-6, seg
     steps = int(counters.get("decode_steps", 0))
     print(
         f"[f32] load_model large-v3 float32 {load_s:.2f} s; {F32_AUDIO_S:.0f} s audio in {wall:.3f} s: RTF "
         f"{F32_AUDIO_S / wall:.2f}x; {len(result['segments'])} segments; encoder passes {passes}; K1 launches "
-        f"{launches} (= {pipe.model.dims.n_audio_layer} x {passes}), every one on the f32 route; decode steps "
+        f"{launches} (= {pipe.model.dims.n_audio_layer} x {passes}), every one on the f32 route; K3 launches "
+        f"{cross_attention_decode.launches}; decode steps "
         f"{steps} ({wall / max(steps, 1) * 1e3:.3f} ms of wall a step); peak memory {peak / 2**30:.2f} GiB"
     )
     profile = phase_decode_profile(pipe.model, "profile f32")
@@ -4034,15 +4126,14 @@ def phase_parallel(pipe) -> None:
     del m32, want32, got32
     torch.cuda.empty_cache()
 
-    # the K3 opt-in on the split model: each shard's one-token cross-attention
-    # over its own heads' int8 cache
-    with cross_decode_opt_in():
-        cross_attention_decode.launches = 0
-        h = decode_dispatch(model, mel16, DecodingOptions(language="en", sample_len=8, kv_quant=True))
-        torch.cuda.synchronize()
+    # K3 on the split model, the default route of its bf16 steps: each
+    # shard's one-token cross-attention over its own heads' int8 cache
+    cross_attention_decode.launches = 0
+    h = decode_dispatch(model, mel16, DecodingOptions(language="en", sample_len=8, kv_quant=True))
+    torch.cuda.synchronize()
     want = dims.n_text_layer * 2 * h["steps"]
     assert cross_attention_decode.launches == want > 0, (cross_attention_decode.launches, want)
-    print(f"[parallel] K3 opt-in, bf16 split over 2, batch {TP_BATCH}: launched {want} times "
+    print(f"[parallel] K3, bf16 split over 2, batch {TP_BATCH}: launched {want} times "
           f"(= {dims.n_text_layer} layers x 2 shards x {h['steps']} steps) on [{TP_BATCH}, 1, 10, 64] "
           f"head slices")
 
@@ -4682,7 +4773,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
-    os.environ.pop(CROSS_DECODE_FLAG, None)  # off (the default) but where asked
+    # the JAX package's opt-in reaches only CPU tensors: its force would move
+    # the [small] phases' CPU routes
+    os.environ.pop(CROSS_DECODE_FLAG, None)
     # the aligner is the checkpoint phase 4c writes; random weights are skipped
     for flag in ("WHISPERX_TPU_ALIGN_DIR", "WHISPERX_TPU_ALLOW_RANDOM_ALIGN"):
         os.environ.pop(flag, None)
@@ -4720,11 +4813,9 @@ def main() -> int:
 
         pipe = whisperx_tpu_torch.load_model("large-v3", vad_method="energy", batch_size=8,
                                              compute_type="bfloat16")
-        timed(phase_decode_profile, pipe.model)
+        timed(phase_decode_profile, pipe.model, k3={})
         timed(phase_eviction_gate, pipe.model)
         timed(phase_cross_decode_step, pipe.model)
-        with cross_decode_opt_in():
-            timed(phase_decode_profile, pipe.model, "profile cross-decode", k3={}, label=" (cross-decode)")
         timed(same_shape_threads, pipe.model)
         del pipe
         torch.cuda.empty_cache()
@@ -4748,6 +4839,7 @@ def main() -> int:
     k1, k1_f32, k1b, k2 = timed(phase_kernels)
     k4, k4_shapes = timed(phase_k4)
     (k3, k3kt, k3i8), k3_shapes = timed(phase_k3)
+    timed(phase_k3_route)
     if sys.argv[1:] == ["--kernels"]:  # phases 1-3 only
         print(f"[done] {REPO}: kernel phases passed in {time.perf_counter() - t_start:.1f} s")
         print(json.dumps({"kernels": [k1, k1_f32, k1b, k2, k3, k3kt, k3i8, k4],
@@ -4772,11 +4864,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as align_root:
         os.environ["WHISPERX_TPU_ALIGN_DIR"] = make_align_checkpoint(align_root)
         timed(phase_alignment, main_result["segments"])
-        timed(phase_decode_profile, pipe.model)
+        timed(phase_decode_profile, pipe.model, k3=k3)
         timed(phase_eviction_gate, pipe.model)
         timed(phase_cross_decode_step, pipe.model)
-        with cross_decode_opt_in():
-            timed(phase_decode_profile, pipe.model, "profile cross-decode", k3=k3, label=" (cross-decode)")
         timed(phase_transcribe_many, pipe, k3)
         timed(phase_speculative, pipe)
         timed(phase_serving, pipe)

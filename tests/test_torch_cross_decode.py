@@ -21,6 +21,7 @@ from whisperx_tpu_torch.convert.checkpoint import params_from_numpy
 from whisperx_tpu_torch.decoding import DecodingOptions, decode
 from whisperx_tpu_torch.models.whisper import model as tm
 from whisperx_tpu_torch.ops import cross_attention_decode as tx
+from whisperx_tpu_torch.utils.metrics import GLOBAL_TRACKER
 from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 DIMS = MODEL_DIMS["test-nano"]
@@ -304,6 +305,26 @@ def test_opt_in_keeps_the_jax_meaning(monkeypatch, flag, device, want):
     assert tx.use_cross_decode_kernel(torch.device(device)) is want
 
 
+@pytest.mark.parametrize("capture", [False, True])
+@pytest.mark.parametrize("beam_groups", [1, 2])
+@pytest.mark.parametrize("t_new", [1, 3])
+@pytest.mark.parametrize("quantized", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("device", ["cuda", "cpu"])
+def test_route_takes_k3_only_for_bf16_one_token_steps_on_cuda(
+    monkeypatch, device, dtype, quantized, t_new, beam_groups, capture
+):
+    """With the opt-in unset, only CUDA + a bf16 query + an int8 cache + one
+    token + no beams + no capture takes K3; a head size K3 does not take
+    keeps the einsum there too."""
+    monkeypatch.delenv("WHISPERX_TPU_CROSS_DECODE", raising=False)
+    args = (torch.device(device), dtype, 64, quantized, t_new, beam_groups, capture)
+    want = (device == "cuda" and dtype == torch.bfloat16 and quantized and t_new == 1
+            and beam_groups == 1 and not capture)
+    assert tx.cross_decode_route(*args) is want
+    assert tx.cross_decode_route(*args[:2], 80, *args[3:]) is False
+
+
 def test_cpu_tensors_take_the_plain_version_without_launching():
     qs, k8, v8, _, _ = _inputs(1, 64, 2, 32, seed=1)
     before = tx.cross_attention_decode.launches
@@ -412,3 +433,29 @@ def test_greedy_tokens_with_k3_identical_to_jax(nano, monkeypatch):
     np.testing.assert_allclose(
         [r.no_speech_prob for r in got], [r.no_speech_prob for r in want], atol=1e-5
     )
+
+
+def _pass_counts():
+    c = GLOBAL_TRACKER.counters
+    return {k: c.get(k, 0.0) for k in ("cross_decode.kernel_passes", "cross_decode.plain_passes", "step_replays")}
+
+
+@pytest.mark.parametrize("flag", ["force", None])
+def test_counters_count_one_token_passes_by_route(nano, monkeypatch, flag):
+    """An eager test-nano greedy decode over the int8 cache counts one pass
+    a layer a step, by route: under ``force`` every one on K3's plain
+    version, without the opt-in every one on the einsum; the prefill
+    (t_new > 1) is in neither count."""
+    _, model = nano
+    if flag is None:
+        monkeypatch.delenv("WHISPERX_TPU_CROSS_DECODE", raising=False)
+    else:
+        monkeypatch.setenv("WHISPERX_TPU_CROSS_DECODE", flag)
+    mel = torch.from_numpy(np.random.default_rng(3).standard_normal((1, 3000, DIMS.n_mels)).astype(np.float32))
+    before = _pass_counts()
+    decode(model, mel, DecodingOptions(language="en", kv_quant=True, sample_len=3))
+    got = {k: v - before[k] for k, v in _pass_counts().items()}
+    passes = DIMS.n_text_layer * got["step_replays"]
+    assert got["step_replays"] == 3
+    kernel, plain = (passes, 0) if flag == "force" else (0, passes)
+    assert (got["cross_decode.kernel_passes"], got["cross_decode.plain_passes"]) == (kernel, plain)

@@ -368,6 +368,66 @@ def test_replays_from_many_threads_add_the_captured_launches():
     assert cache.stats()["replays"] == n
 
 
+class CapturedStep:
+    """A stand-in for a graph whose capture ran the step once, counts
+    recorded: its first replay is that step, already done; a later one
+    runs the body with its counts recorded and dropped, since a replay
+    runs no Python and only the capture's record (added by
+    ``StepGraph.step``) counts."""
+
+    def __init__(self, body):
+        self.body, self.fresh = body, True
+
+    def replay(self):
+        if self.fresh:
+            self.fresh = False
+            return
+        with ops.recording_launches():
+            self.body()
+
+
+@pytest.mark.parametrize("flag", ["force", None])
+def test_replays_add_the_captured_pass_counts(params, mels, tokenizers, monkeypatch, flag):
+    """A greedy int8-cache decode whose steps replay a capture: the capture
+    records one pass a layer, by route (K3's under ``force``, the einsum's
+    without the opt-in), and each replay adds it once, so the tracker
+    counts n_text_layer x steps, as an eager decode does, with its tokens."""
+    if flag is None:
+        monkeypatch.delenv("WHISPERX_TPU_CROSS_DECODE", raising=False)
+    else:
+        monkeypatch.setenv("WHISPERX_TPU_CROSS_DECODE", flag)
+    records = []
+
+    def warm_up(self, body):
+        body()
+        self.warmed = True
+
+    def capture(self, body):
+        with ops.recording_launches() as record:
+            body()
+        self.graph, self.launches = CapturedStep(body), record
+        records.append(record)
+
+    monkeypatch.setattr(step_graph, "graphable", lambda model: True)
+    monkeypatch.setattr(StepGraph, "_warm_up", warm_up)
+    monkeypatch.setattr(StepGraph, "_capture", capture)
+    _, ttok = tokenizers
+    model = _torch_model(params)
+    opts = DecodingOptions(language="en", sample_len=SAMPLE_LEN, kv_quant=True)
+    names = ("cross_decode.kernel_passes", "cross_decode.plain_passes")
+    route, other = names if flag == "force" else names[::-1]
+    results = []
+    for eager in (True, False):
+        before = {k: step_graph.GLOBAL_TRACKER.counters.get(k, 0.0) for k in names}
+        handle = decode_dispatch(model, torch.from_numpy(mels[:2]), opts, tokenizer=ttok, _eager=eager)
+        results.append(_results(handle))
+        got = {k: step_graph.GLOBAL_TRACKER.counters.get(k, 0.0) - before[k] for k in names}
+        assert got == {route: DIMS.n_text_layer * handle["steps"], other: 0}, (eager, got)
+    assert results[0] == results[1]
+    assert records == [{route: DIMS.n_text_layer}]
+    assert graph_cache(model.decoder).stats()["replays"] == handle["steps"] - 1
+
+
 def test_two_threads_never_hold_one_entry():
     """Threads asking for one key at once each get an entry of their own;
     the cache keeps at most ``max_entries`` idle ones afterwards."""

@@ -41,7 +41,9 @@ cache its caller names.
 
 Kernel launches are counted as on the eager path: during a capture the
 wrappers' counts go to the entry's record (``ops.recording_launches``),
-and each replay adds the record once (``ops.add_launches``).
+and each replay adds the record once (``ops.add_launches``); so do the
+tracker's counters of ``ops.count_pass`` (the cross-attention passes by
+route).
 
 The tracker (``utils/metrics.py::GLOBAL_TRACKER``) counts each decode's
 steps run through the runner (``step_replays``: the replays on the card,
@@ -62,7 +64,6 @@ from typing import Callable, List, Optional
 import torch
 
 from whisperx_tpu_torch.ops import add_launches, recording_launches
-from whisperx_tpu_torch.ops.cross_attention_decode import use_cross_decode_kernel
 from whisperx_tpu_torch.utils.metrics import GLOBAL_TRACKER, device_mark, mark_elapsed_s
 from whisperx_tpu_torch.utils.precision import reference_matmul
 
@@ -300,10 +301,10 @@ def weights_fingerprint(*decs) -> tuple:
 
 def graph_key(dec, shape: tuple) -> tuple:
     """The cache key of a step: the decode's ``shape`` key (kind, rows,
-    cache length, static configuration...), the decoder's device and dtype,
-    and the cross-decode opt-in's state, which picks K3 inside the step."""
-    device = dec.tok_emb.device
-    return (*shape, device, dec.tok_emb.dtype, use_cross_decode_kernel(device))
+    cache length, static configuration...) and the decoder's device and
+    dtype (with the cache's kind, which ``shape`` holds, the dtype picks
+    K3's route inside the step)."""
+    return (*shape, dec.tok_emb.device, dec.tok_emb.dtype)
 
 
 def graphable(model) -> bool:

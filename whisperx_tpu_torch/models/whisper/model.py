@@ -15,10 +15,12 @@ it step by step so that f32 runs agree with the JAX package to rounding:
   - GELU is the tanh approximation (``jax.nn.gelu``'s default);
   - the encoder's self-attention goes through the K1 kernel
     (``ops/flash_attention.py``); the decoder's attention is plain matrix
-    products, as it is in the JAX package, except behind its opt-in
-    (``WHISPERX_TPU_CROSS_DECODE``): a one-token step's cross-attention
-    over the int8 cache then goes through K3
-    (``ops/cross_attention_decode.py``);
+    products, as it is in the JAX package, except that on CUDA a bf16
+    one-token step's cross-attention over the int8 cache goes through K3
+    (``ops/cross_attention_decode.py::cross_decode_route``), which reads
+    the cache in place (JAX keeps K3 behind an opt-in that is off by
+    default); the tracker counts these passes by route
+    (``cross_decode.kernel_passes``, ``cross_decode.plain_passes``);
   - a weight-only quantized linear (``quant.QuantizedLinear``) goes through
     ``quant_linear_apply``: K4 for int8 on CUDA (``ops/quant_matmul.py``);
   - every forward also runs on a tensor-parallel model
@@ -43,9 +45,9 @@ from torch import nn
 from whisperx_tpu_torch.models.whisper.config import ModelDimensions
 from whisperx_tpu_torch.ops.cross_attention_decode import (
     cross_attention_decode,
-    use_cross_decode_kernel,
+    cross_decode_route,
 )
-from whisperx_tpu_torch.ops import refuse_xla_route
+from whisperx_tpu_torch.ops import count_pass, refuse_xla_route
 from whisperx_tpu_torch.ops.flash_attention import flash_attention
 from whisperx_tpu_torch.quant.core import QuantizedLinear, quant_linear_apply
 from whisperx_tpu_torch.utils.precision import reference_matmul
@@ -558,8 +560,9 @@ def precompute_cross_kv(
 def _cross_attention(
     cq: torch.Tensor, ck: CrossKV, cv: CrossKV, use_kernel: bool = False
 ) -> torch.Tensor:
-    """``use_kernel``: a one-token step under the opt-in, where an int8 cache
-    goes through K3 (its query rounded to bf16, as in JAX)."""
+    """``use_kernel`` (``cross_decode_route``'s answer): a one-token step
+    whose int8 cache goes through K3, read in place (its query rounded to
+    bf16, as in JAX); otherwise the einsum over the cache widened to f32."""
     if not isinstance(ck, QuantizedKV):
         return qkv_attention(cq, ck, cv)
     dh = cq.shape[-1]
@@ -638,11 +641,6 @@ def decoder_forward(
         self_mask = torch.zeros((t_new, cache_len), dtype=torch.float32, device=device)
         self_mask.masked_fill_(k_pos[None, :] > positions[:, None], float("-inf"))
         self_mask = self_mask[None, None]
-    # the cross-decode opt-in, read once per pass (JAX reads it per layer)
-    use_k3 = (
-        t_new == 1 and beam_groups == 1 and not capture_cross_qk
-        and use_cross_decode_kernel(device)
-    )
     # (layer, head) → [B, T_new, 1500], or layer → per-shard [B, H_s, T_new, 1500]
     captured = {}
 
@@ -667,6 +665,12 @@ def decoder_forward(
 
         h = layer_norm(blk.cross_attn_ln, x)
         cqs = _column(blk.cross_attn.query, h, lay.heads, dh)
+        use_k3 = cross_decode_route(
+            cqs[0].device, cqs[0].dtype, dh, isinstance(_part(cache.cross_k[i], 0), QuantizedKV),
+            t_new, beam_groups, capture_cross_qk,
+        )
+        if t_new == 1:  # one per layer of a one-token pass, by route
+            count_pass("cross_decode.kernel_passes" if use_k3 else "cross_decode.plain_passes")
         cattn = []
         for s, (dev, h0, h1) in enumerate(lay.heads):
             cq = _split_heads(cqs[s], h1 - h0)

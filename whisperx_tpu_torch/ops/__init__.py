@@ -4,6 +4,8 @@ import contextlib
 import os
 import threading
 
+from whisperx_tpu_torch.utils.metrics import GLOBAL_TRACKER
+
 _COUNT_LOCK = threading.Lock()
 _CAPTURING = threading.local()  # .launches: the record of a capture on this thread
 
@@ -23,10 +25,22 @@ def count_launch(fn, attr: str = "launches") -> None:
         setattr(fn, attr, getattr(fn, attr) + 1)
 
 
+def count_pass(counter: str) -> None:
+    """Add one to the tracker's counter ``counter`` (``GLOBAL_TRACKER``). As
+    with ``count_launch``, inside ``recording_launches`` on this thread it
+    goes to the capture's record under its name, and each replay adds it."""
+    record = getattr(_CAPTURING, "launches", None)
+    if record is not None:
+        record[counter] = record.get(counter, 0) + 1
+        return
+    GLOBAL_TRACKER.add(counter)
+
+
 @contextlib.contextmanager
 def recording_launches():
     """Inside, on this thread: the wrappers' launches are recorded in the
-    yielded dict, ``(fn, attr) → n``, and not counted."""
+    yielded dict, ``(fn, attr) → n``, and not counted; so are the tracker's
+    counters of ``count_pass``, ``name → n``."""
     record = {}
     _CAPTURING.launches = record
     try:
@@ -37,10 +51,16 @@ def recording_launches():
 
 def add_launches(record: dict) -> None:
     """Count the launches of a ``recording_launches`` record once more, under
-    the counters' lock: one replay of the captured graph."""
+    the counters' lock, and its tracker counters: one replay of the captured
+    graph."""
     with _COUNT_LOCK:
-        for (fn, attr), n in record.items():
-            setattr(fn, attr, getattr(fn, attr) + n)
+        for key, n in record.items():
+            if not isinstance(key, str):
+                fn, attr = key
+                setattr(fn, attr, getattr(fn, attr) + n)
+    for key, n in record.items():
+        if isinstance(key, str):
+            GLOBAL_TRACKER.add(key, n)
 
 
 def refuse_xla_route(switch: str, asked: bool, tensor) -> None:

@@ -1,6 +1,6 @@
 """Cross-attention of one decode step over the int8 cross K/V cache: the K3
 kernels (``csrc/cross_attention_decode.cu``), their plain PyTorch versions,
-and the op the decoder calls behind the opt-in.
+the op the decoder calls, and the route that picks it.
 
 Counterpart of ``whisperx_tpu/ops/cross_attention_decode.py``. Its three
 Pallas functions keep their argument layouts here:
@@ -22,6 +22,12 @@ other columns add exact zeros).
 A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
 version. ``cross_attention_decode`` (the decoder's op) passes the packed
 query to the kernel directly, without building the [B, H, D] spread.
+
+``cross_decode_route`` decides from a pass's own operands: on CUDA every
+one-token, unfolded, uncaptured pass of a bf16 query over an int8 cache
+goes to K3, which reads the cache in place; the JAX package keeps the same
+kernel behind its opt-in (``WHISPERX_TPU_CROSS_DECODE``), off by default on
+the TPU. The opt-in keeps its meaning here only for CPU tensors.
 
 ``launch_plan`` splits T across a thread-block cluster per (b, h): it picks
 the keys of each block's sub-split and the cluster size, which the kernel
@@ -87,11 +93,31 @@ def use_cross_decode_kernel(device: torch.device) -> bool:
     """The JAX package's opt-in, with its variable and values:
     ``WHISPERX_TPU_CROSS_DECODE=1`` sends CUDA tensors to the kernel (CPU
     tensors stay on the einsum), ``=force`` sends CPU tensors to the plain
-    version too; anything else, the default, is off."""
+    version too; anything else, the default, is off. ``cross_decode_route``
+    asks it for CPU tensors only."""
     flag = os.environ.get("WHISPERX_TPU_CROSS_DECODE", "0")
     if flag == "force":
         return True
     return flag == "1" and torch.device(device).type == "cuda"
+
+
+def cross_decode_route(
+    device: torch.device, q_dtype: torch.dtype, head_dim: int, quantized: bool,
+    t_new: int, beam_groups: int = 1, capture: bool = False,
+) -> bool:
+    """Whether a decoder pass's cross-attention goes through
+    ``cross_attention_decode``. Only a one-token pass (``t_new`` 1) with no
+    beams folded into its queries and no scores captured, over an int8
+    cache (``quantized``), can: on CUDA when its query is bf16 and the
+    kernel takes its head size (an f32 or f16 query keeps the einsum: the
+    kernel rounds the query to bf16, below the precision such a model
+    states); on the CPU only under the opt-in's ``force`` (the plain
+    version)."""
+    if t_new != 1 or beam_groups != 1 or capture or not quantized:
+        return False
+    if torch.device(device).type == "cuda":
+        return q_dtype == torch.bfloat16 and head_dim in _HEAD_DIMS
+    return use_cross_decode_kernel(device)
 
 
 @reference_matmul()
@@ -259,7 +285,9 @@ def cross_attention_decode(
     """softmax(q_eff · k8ᵀ) · v8 for one decode step → [B, 1, H, Dh] f32; the
     caller applies the V channel scales. The query is rounded to bf16 (as in
     JAX, whatever the model's dtype). CUDA tensors launch K3
-    (``cross_attention_decode.launches`` counts the launches)."""
+    (``cross_attention_decode.launches`` counts the launches): the decoder's
+    route for every bf16 one-token step over an int8 cache on CUDA
+    (``cross_decode_route``); CPU tensors take the plain version."""
     b, one, h, dh = q_eff.shape
     if one != 1:
         raise ValueError("cross_attention_decode handles one query per row")
