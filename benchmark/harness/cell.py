@@ -25,6 +25,7 @@ class Ctx:
         self.requests: List[dict] = []
         self.window_s: Optional[float] = None
         self.pipeline = self.pool = None
+        self.aligner = None  # (aligner, metadata) of a configuration that aligns
         self.trace_summary: Optional[Dict] = None
         self.k1_launches = 0
         self.tracker: Dict = {}
@@ -114,11 +115,12 @@ def _device_info(device) -> dict:
 
 def run(cell: str, seed: int, seconds: float, trace_on: bool, *, t_start: float, device: str = "cuda",
         bench_dir: str = spec.BENCH_DIR, workload: Optional[dict] = None, config: Optional[dict] = None,
-        control: bool = False, log=print):
+        control: int = 0, log=print):
     """One run: (the result line's object, the JAX-side modules loaded).
-    ``workload``/``config`` override the files (tests). With ``control``
+    ``workload``/``config`` override the files (tests). With ``control`` 1
     the fp8 control is judged in the program's place (``check.compare``),
-    and ``correct`` must come out false."""
+    with 2 the bfloat16 aligner control (``check.compare_alignment``), and
+    ``correct`` must come out false."""
     import torch
 
     from reference.params import make_weights
@@ -130,9 +132,11 @@ def run(cell: str, seed: int, seconds: float, trace_on: bool, *, t_start: float,
     drive = spec.traffic(w["traffic"], bench_dir)
     dev = torch.device(device)
     ctx = Ctx(cell, w, cfg, seed, seconds, trace_on, dev)
-    with tempfile.TemporaryDirectory() as tmp, vocab.installed(tmp) as vocab_path:
+    with tempfile.TemporaryDirectory() as tmp, vocab.installed(tmp, vocab.alphabet(cfg)) as vocab_path:
         weights = make_weights(cfg, seed, dev)
         ctx.pipeline = program.build(cfg, w, weights, dev, vocab_path)
+        if "align" in cfg:
+            ctx.aligner = program.aligner(cfg, seed, dev, tmp)
         ctx.pool = audio.pool(w["params"]["pool_s"], seed, dev)
         drive.warm(ctx)
         if trace_on:  # the process's first profiled block starts the tracer, in seconds
@@ -152,6 +156,10 @@ def run(cell: str, seed: int, seconds: float, trace_on: bool, *, t_start: float,
         e2e["setup_s"] = setup_s
         e2e["peak_mem_gib"] = device_info["memory_peak_bytes"] / 2**30
         ctx.trace_summary = ctx.traced.finish() if ctx.traced is not None else None
+        if trace_on and dev.type == "cuda" and not (ctx.trace_summary or {}).get("busy_s", 0.0) > 0:
+            got = ctx.trace_summary or {}
+            raise RuntimeError(f"the profiled slice holds no device work: busy {got.get('busy_s')} s "
+                               f"of {got.get('window_s')} s")
         steps = ctx.tracker["counters"].get("decode_steps", 0.0)
         calls = ctx.tracker["stages"].get("decode", {}).get("calls", 0)
         log(f"decode steps per batch: {steps / calls if calls else 0:.2f} over {calls} batches; "
@@ -169,7 +177,7 @@ def run(cell: str, seed: int, seconds: float, trace_on: bool, *, t_start: float,
                 if e2e.get(m["name"]) is not None:
                     metrics[m["name"]] = {"value": e2e[m["name"]], "unit": m["unit"]}
         requests, pool = ctx.requests, ctx.pool
-        ctx.pipeline = None
+        ctx.pipeline = ctx.aligner = None
         ctx.__dict__.pop("batcher", None)
         gc.collect()
         if dev.type == "cuda":
@@ -177,13 +185,20 @@ def run(cell: str, seed: int, seconds: float, trace_on: bool, *, t_start: float,
         failed = sum(1 for r in requests if r.get("error") or "done" not in r)
         chk = w["check"]
         sampled = check.sample(requests, seed, chk["requests"], chk["audio_s"])
-        numbers = check.compare(sampled, lambda r: pool[r["offset"]:r["offset"] + r["n"]], cfg, seed, dev,
-                                int(w["params"]["sample_len"]), control=control)
+
+        def audio_of(r):
+            return pool[r["offset"]:r["offset"] + r["n"]]
+
+        numbers = check.compare(sampled, audio_of, cfg, seed, dev, int(w["params"]["sample_len"]),
+                                control=control == 1)
+        if "align" in cfg:
+            numbers.update(check.compare_alignment(sampled, audio_of, cfg, seed, dev, control=control == 2))
     numbers["failed"] = float(failed)
     jax_like = program.loaded_top_level()
     limits = dict(w["limits"])
     checks = {k: {"value": numbers[k], "limit": limits[k]} for k in limits}
-    correct = all(c["value"] <= c["limit"] for c in checks.values()) and numbers["tokens"] > 0
+    compared = numbers["tokens"] > 0 and numbers.get("align_chars", 1.0) > 0
+    correct = all(c["value"] <= c["limit"] for c in checks.values()) and compared
     out = {"correct": bool(correct), "attempted": len(requests), "failed": failed, "metrics": metrics,
            "device": device_info}
     if trace_on and ctx.trace_summary is not None:

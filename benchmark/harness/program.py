@@ -2,10 +2,15 @@
 weights handed to ``convert.checkpoint.params_from_numpy`` (the JAX
 package's flat layout, as a converted checkpoint is read), the energy VAD of
 ``vad.load_vad_model`` and a ``TranscriptionPipeline`` with the options the
-configuration states."""
+configuration states. A configuration with an ``align`` section also has
+its aligner loaded as a user loads a converted one: the seeded wav2vec2
+weights written with ``convert.checkpoint.save_checkpoint`` (with the
+section's config and dictionary) into the run's temporary directory, then
+``alignment.load_align_model`` from there."""
 
 from __future__ import annotations
 
+import os
 import sys
 
 from harness import spec
@@ -63,6 +68,26 @@ def build(config: dict, workload: dict, weights: dict, device, vocab_path: str):
         language=config["language"],
         batch_size=int(workload["params"]["batch_size"]),
     )
+
+
+def aligner(config: dict, seed: int, device, directory: str):
+    """``(aligner, metadata)`` of ``alignment.load_align_model`` over the
+    configuration's seeded aligner weights (``params.make_align_weights``),
+    written as a converted checkpoint under ``directory``."""
+    _import_path()
+    from whisperx_tpu_torch import alignment
+    from whisperx_tpu_torch.convert.checkpoint import save_checkpoint
+
+    from reference.params import align_dims, make_align_weights
+
+    a = config["align"]
+    dims = align_dims(config)
+    dims.pop("conv_bias")  # the loader reads it from the weights' names
+    flat = {name: t.cpu().numpy() for name, t in make_align_weights(config, seed, device).items()}
+    save_checkpoint(os.path.join(directory, a["name"].replace("/", "__")), flat,
+                    {"family": "wav2vec2", "name": a["name"], "config": dims, "dictionary": a["dictionary"]})
+    del flat
+    return alignment.load_align_model(config["language"], device, model_name=a["name"], model_dir=directory)
 
 
 def loaded_top_level(names=("jax", "jaxlib", "flax", "whisperx_tpu")) -> list:

@@ -2,7 +2,24 @@
 mix, cell or per-layer metric is a new file and an entry in
 ``BENCHMARK.json``, never an edit:
 
-- ``configs/<config>.json``: a configuration (sizes, precision, options);
+- ``configs/<config>.json``: a configuration (sizes, precision, options).
+  An optional ``align`` section gives it WhisperX's forced alignment:
+  ``name`` (the model's published name, under which its converted checkpoint
+  is written and loaded), ``source`` (its public ``config.json``),
+  ``hf_config`` (that file's ``hidden_size``, ``num_hidden_layers``,
+  ``num_attention_heads``, ``intermediate_size``, ``conv_dim``,
+  ``conv_kernel``, ``conv_stride``, ``feat_extract_norm``,
+  ``do_stable_layer_norm``, ``num_conv_pos_embeddings``,
+  ``num_conv_pos_embedding_groups``, ``vocab_size``, ``conv_bias``),
+  ``dictionary`` (the CTC label set) and ``interpolate_method``. With it
+  the run draws seeded wav2vec2 weights (``reference/params.py``), loads the aligner through the port's
+  ``alignment.load_align_model`` (``program.aligner``), installs a
+  vocabulary whose text the aligner can time (``vocab.py``) and checks the
+  aligned words against ``reference/wav2vec2.py`` and ``reference/ctc.py``
+  (``check.compare_alignment``); a cell of traffic ``offline_words``
+  aligns each file. A configuration that aligns is therefore a new
+  configuration file, a new cell file with the ``align_*`` limits, their
+  entries in ``BENCHMARK.json``, and any per-layer readers of its own;
 - ``workloads/<cell>.json``: a cell: its configuration, its traffic kind
   and that kind's parameters;
 - ``traffic/<kind>.py``: the driver of one traffic kind (``warm(ctx)`` and

@@ -31,13 +31,14 @@ import json, sys, glob
 sys.path.insert(0, {BENCH!r})
 sys.path.insert(0, {ROOT!r})
 from harness import cell, check, program, spec, readers, stats, flops, trace, audio, vocab
-from reference import frontend, params, rules, whisper
-for kind in ("offline", "serve"):
+from reference import ctc, frontend, params, rules, wav2vec2, whisper
+for kind in ("offline", "offline_words", "serve"):
     spec.traffic(kind)
 for path in glob.glob({os.path.join(BENCH, 'metrics', '*.py')!r}):
     spec.metric_reader(path.rsplit('/', 1)[1][:-3])
 import whisperx_tpu_torch.asr, whisperx_tpu_torch.serve, whisperx_tpu_torch.convert.checkpoint
 import whisperx_tpu_torch.vad, whisperx_tpu_torch.ops.flash_attention, whisperx_tpu_torch.utils.metrics
+import whisperx_tpu_torch.alignment
 import torch.profiler
 print(json.dumps(sorted({{m.split('.', 1)[0] for m in sys.modules}})))
 """
@@ -50,7 +51,7 @@ def test_reference_imports_nothing_of_the_program():
     code = f"""
 import json, sys
 sys.path.insert(0, {BENCH!r})
-from reference import frontend, params, rules, whisper
+from reference import ctc, frontend, params, rules, wav2vec2, whisper
 print(json.dumps(sorted({{m.split('.', 1)[0] for m in sys.modules}})))
 """
     tops = _loaded(code)

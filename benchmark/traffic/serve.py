@@ -16,13 +16,18 @@ Each request is timed from when it was due to its result (the batcher's
 callback), so a stall charges every request due behind it; a request that
 fails or has not come a minute after the window closed is missing. A traced
 run profiles about a twentieth of the window: from the first result after
-45% of it to the first after 50%; its per-layer counters (the batcher's,
-the tracker's) are read up to where the slice opens, since the profiler's
-start stalls the generator for seconds.
+45% of it to the first after 50%, and at least a fortieth of the window
+after the profiler has started (one call's results come one after another:
+where the opening result comes late, or the profiler's start stalls, the
+next result of the same call would close a slice with no device work in
+it); its per-layer counters (the batcher's, the tracker's) are read up to
+where the slice opens, since the profiler's start stalls the generator for
+seconds.
 """
 
 from __future__ import annotations
 
+import sys
 import threading
 import time
 
@@ -98,9 +103,10 @@ def window(ctx) -> dict:
     # one that drives the device, in a result's callback: between calls,
     # with nothing of its own in flight
     start = time.perf_counter()
-    lo, hi = start + 0.45 * ctx.seconds, start + 0.5 * ctx.seconds
+    lo, hi, least = start + 0.45 * ctx.seconds, start + 0.5 * ctx.seconds, 0.025 * ctx.seconds
     sl = ctx.slice(ctx.trace)
     state = ["before" if ctx.trace else "after"]
+    marks = {}  # the slice's opening and closing, on the host clock
 
     def finished(req, result):
         req["done"] = time.perf_counter()
@@ -111,8 +117,10 @@ def window(ctx) -> dict:
             if state[0] == "before" and req["done"] >= lo:
                 state[0] = "in"
                 sl.__enter__()
-            elif state[0] == "in" and req["done"] >= hi:
+                marks["opened"] = time.perf_counter()
+            elif state[0] == "in" and req["done"] >= max(hi, marks.get("opened", lo) + least):
                 state[0] = "after"
+                marks["closed"] = time.perf_counter()
                 sl.__exit__(None, None, None)
         except Exception as e:
             ctx.slice_error = f"{type(e).__name__}: {e}"
@@ -142,7 +150,11 @@ def window(ctx) -> dict:
         ctx.batcher_after = ctx.batcher.stats_snapshot()
     ctx.batcher.stop()
     if state[0] == "in":  # no result came after the slice's end: the worker has stopped
+        marks["closed"] = time.perf_counter()
         sl.__exit__(None, None, None)
+    if "opened" in marks:
+        print(f"profiled slice: {marks['opened'] - start:.3f} s to {marks['closed'] - start:.3f} s "
+              "of the window", file=sys.stderr)
     if getattr(ctx, "slice_error", None):
         raise RuntimeError(f"the profiled slice failed: {ctx.slice_error}")
     lat = stats.latencies(ctx.requests)
